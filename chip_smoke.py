@@ -5,33 +5,47 @@
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
-  1. device: the card's name and power limit (nvidia-smi), the build time;
+  1. device: the card's name, power limit and top SM clock (nvidia-smi), the
+     build time;
   2. kernels vs plain versions on the card, exact equality, on simulated
-     overlaps at 3% and 15% error plus random non-overlaps: K1
-     (bitwave.cu) at the prefilter geometry (B=4096, LB=128, W=58, R=0.45)
-     and at the 2048, 4096 and 8192 full-screen buckets (B=1024, R=0.3);
-     K2 (tbwave.cu) and W (walk.cu) at Bp=32 in the same three buckets; a
-     256-pair sample against the native host aligner;
-  3. the main path at E. coli scale: 4.6 Mb at 30x, reads of mean 2,500,
-     3% uniform error, seed 11; BatchAssembler on cuda, rng_seed 7,
-     round-robin over tests/data/seeds.txt, 60 rounds (more if no round
-     has yet reached the prefilter's candidate threshold); every kernel's
-     launch counter must be > 0 and every plain counter 0. The inputs of
-     the run's first launches of every kernel variant are kept;
-  4. every kernel variant the main path launched, held against its plain
-     version on those kept inputs at the main path's own shapes;
-  5. the device view: 10 more rounds under torch.profiler (the engine's
-     profile_dir), the card's busy share and device time by kernel;
-  6. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
+     overlaps at 3% and 15% error plus random non-overlaps: the screening
+     kernels K1 (bitwave.cu) and K3 (wavefront.cu) at the prefilter geometry
+     (B=4096, LB=128, W=58, R=0.45) and at the 2048, 4096 and 8192
+     full-screen buckets (B=1024, R=0.3), K3 also held equal to K1 field by
+     field; K2 (tbwave.cu) and W (walk.cu) at Bp=32 in the same three
+     buckets; a 256-pair sample against the native host aligner;
+  3. the main path with K1 at E. coli scale: 4.6 Mb at 30x, reads of mean
+     2,500, 3% uniform error, seed 11; BatchAssembler on cuda, rng_seed 7,
+     round-robin over tests/data/seeds.txt, 60 rounds (more if no round has
+     yet reached the prefilter's candidate threshold); every kernel of the
+     path must have launched and no plain version. Its state is kept, then
+     a few more rounds run under torch.profiler (the engine's profile_dir):
+     the card's busy share and device time by kernel;
+  4. the row-DP path: the same read store, trial-seed cache and device read
+     matrix, screen_kernel="rowdp", as many rounds; K3 and K2/W launch, no
+     K1 and no plain version, and its RoundStats, contig bytes, votes and
+     surviving reads equal the K1 path's kept state. Then 10 more rounds
+     under torch.profiler, for K3's device time;
+  5. locate on the card: 2,000 reads (1,500 the row-DP path consumed, 500
+     it did not) mapped onto its contig, pattern 1 of seeds.txt, R=0.15,
+     through K3 and through K1: equal TSVs, the first 100 reads equal the
+     sequential host loop, residual error and wall time of each;
+  6. every kernel variant the paths of 3-5 launched, held against its plain
+     version on the inputs of its first launches, at the paths' own shapes;
+  7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
      contig bytes, votes and surviving reads.
 
 Kernel times are CUDA events: a kernel's is the min over fresh inputs, a
 plain version's is its one checked run (each plain version runs once on
 a tiny batch first, so that PyTorch's lazy kernel loading stays out of
-the timed runs). Prints one JSON line of kernel
-results, the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
-Any failure exits non-zero before that. Needs no network and imports no
-JAX; the shared host layers come through pacbioassembly_tpu_torch.host.
+the timed runs). Each kernel's bound is the larger of the bytes its
+function must move over 3.35 TB/s and the integer operations of the least
+work known for its function on these inputs (`bound_work`: the same count
+for K1 and K3, over each pair's own band and its rows up to failure or
+len_a) over 132 SMs x 64 INT32 lanes x the top SM clock. Prints one JSON line of kernel results, the
+nvidia-smi line, and last `{"ok": true, "device": {...}}`. Any failure
+exits non-zero before that. Needs no network and imports no JAX, and
+nothing of the JAX package: only the port.
 """
 
 from __future__ import annotations
@@ -51,16 +65,18 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEEDS = os.path.join(REPO, "tests", "data", "seeds.txt")
 BUCKETS = (2048, 4096, 8192)  # full-screen buckets the E. coli slice launches at
-PROFILED_ROUNDS = 10
+PROFILED_ROUNDS = {"bitwave": 10, "rowdp": 10}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+INT32_LANES = 132 * 64     # SMs x INT32 lanes per SM
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields="name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -87,7 +103,7 @@ def make_pairs(rng, n, LB, LA, err_mix=(0.03, 0.15), random_share=0.34):
     """Screening candidates like the engine's: a = the reference from the
     seed on (length up to LA), b = a read segment from the same genome
     position with simulated errors (or an unrelated segment)."""
-    from pacbioassembly_tpu_torch.host import SimConfig, mutate_read
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, mutate_read
 
     A = np.zeros((n, LA), np.uint8)
     Bm = np.zeros((n, LB), np.uint8)
@@ -111,19 +127,88 @@ def make_pairs(rng, n, LB, LA, err_mix=(0.03, 0.15), random_share=0.34):
     return A[perm], la[perm], Bm[perm], lb[perm]
 
 
+# ----------------------------------------------------------------- bounds
+
+
+def _screen_geometry(torch, a, la, b, lb, kw):
+    """Per-pair (md, len_a, len_b, ok_size) of a screening launch, as the
+    kernels compute them."""
+    from pacbioassembly_tpu_torch.align.scan import pair_geometry, threshold_tensors
+    from pacbioassembly_tpu_torch.config import Constants
+
+    tab_len = max(kw["la_max"], a.shape[1], b.shape[1]) + 1
+    _, _, band_tab = threshold_tensors(kw["ratio"], tab_len, str(la.device))
+    md, len_a, len_b = pair_geometry(la.to(torch.int32), lb.to(torch.int32), band_tab, tab_len)
+    maxn = kw.get("maxn", Constants.ALIGNER_MAXN)
+    maxm = kw.get("maxm", Constants.ALIGNER_MAXM)
+    ok = (len_a < maxn + maxm) & (md < maxm) & (md <= kw["w_max"]) & (len_a <= kw["la_max"])
+    return md.double(), len_a.double(), len_b.double(), ok
+
+
+# int32 operations of the least work known for each function, whichever
+# kernel computes it (a 64-bit operation counts as two int32 operations)
+CELL_OPS = 6     # one DP cell: the match compare, three adds, two mins
+WORD_OPS = 34    # one 64-cell word of a bit-parallel (Myers) step: 17 64-bit ops
+PARENT_OPS = 4   # a cell's parent choice: two compares, a select, the 2-bit pack
+
+
+def bound_work(torch, kernel, args, kw, out) -> tuple[float, float]:
+    """(bytes, int32 operations) the kernel's function needs on these
+    inputs, the same for every kernel that computes it: each input read
+    once, each output written once; operations over each pair's own band
+    of 2md+1 lanes and the rows these inputs really run (the scan's
+    dp_rows: up to failure or len_a, 0 when size-rejected). Screening takes
+    per pair the lower of a plain DP (CELL_OPS a cell) and a bit-parallel
+    one (WORD_OPS a 64-lane word); set-up (the match masks, the goal
+    search) is left out, so the count stays below the least work."""
+    nbytes = float(sum(t.numel() * t.element_size() for t in args))
+    if kernel.startswith(("bitwave", "rowdp")):
+        a, la, b, lb = args
+        md, _, _, ok = _screen_geometry(torch, a, la, b, lb, kw)
+        rows = out.dp_rows.double()
+        band = 2 * md + 1
+        nbytes += 6 * 4 * la.numel()
+        ops = rows * torch.minimum(CELL_OPS * band, WORD_OPS * torch.ceil(band / 64))
+        ops = float(torch.where(ok, ops, torch.zeros_like(ops)).sum())
+    elif kernel == "tbwave":
+        from pacbioassembly_tpu_torch.align.tbwave import _geometry
+
+        parents, _, _ = out
+        a, la, b, lb = args
+        NRB = parents.shape[1]
+        nbytes += parents.numel() * 4
+        md, len_a, _ = _geometry(la, lb, kw["la_max"], a.shape[1], b.shape[1], kw["ratio"])
+        rows = torch.clamp(len_a.double(), max=NRB * 16)
+        band = 2 * torch.clamp(md.double(), max=kw["w_max"]) + 1
+        ops = float((rows * band * (CELL_OPS + PARENT_OPS)).sum())
+    else:  # walk: ~20 operations per edit
+        ops_t, vals_t, nedit = out
+        nbytes += ops_t.numel() + vals_t.numel() + nedit.numel() * 4
+        ops = float(nedit.double().sum() * 20)
+    return nbytes, ops
+
+
 class Results:
     """Per kernel: the largest error seen and the timed shapes."""
 
-    def __init__(self):
+    def __init__(self, clock_mhz: float):
         self.err: dict[str, int] = {}
         self.rows: list[dict] = []
+        self.int_rate = INT32_LANES * clock_mhz * 1e6
 
-    def add(self, kernel, where, shape, err, ms, plain_ms):
+    def add(self, torch, kernel, where, shape, err, ms, plain_ms, args, kw, out):
         if err != 0:
             raise AssertionError(f"{kernel} ({where}, {shape}): kernel != plain (max abs err {err})")
+        nbytes, ops = bound_work(torch, kernel, args, kw, out)
+        t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / self.int_rate
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
         self.err[kernel] = max(self.err.get(kernel, 0), err)
-        self.rows.append(dict(kernel=kernel, where=where, shape=shape, ms=ms, plain_ms=plain_ms))
-        log(f"[kernels:{where}] {kernel} {shape}: equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        self.rows.append(dict(kernel=kernel, where=where, shape=shape, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=by))
+        log(f"[kernels:{where}] {kernel} {shape}: equal; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e9:.3f} G int ops)")
 
 
 def _kernel_ms(torch, fn, items):
@@ -133,18 +218,32 @@ def _kernel_ms(torch, fn, items):
     return min(timed(torch, lambda x: fn(*x[0], **x[1]), x)[0] for x in same)
 
 
-def check_score(torch, res, kind, items, where, shape):
-    """K1 against the plain row DP: exact on the first of `items`, a list
-    of (args, kwargs); returns the plain scores."""
+def screen_fn(name):
+    """A screening kernel's wrapper, looked up at call time (the main-path
+    input keeper swaps these module attributes)."""
+    from pacbioassembly_tpu_torch.align import bitwave, wavefront
+
+    return bitwave.batch_score_bitwave if name == "bitwave" else wavefront.batch_score_rowdp
+
+
+def check_score(torch, res, kernel, kind, items, where, shape, plain=None):
+    """A screening kernel (bitwave or rowdp) against the plain row DP:
+    exact on the first of `items`, a list of (args, kwargs). `plain` is
+    (scores, ms) of the plain version on those inputs when already run.
+    Returns (plain scores, plain ms, kernel scores)."""
     from pacbioassembly_tpu_torch.align import scan
-    from pacbioassembly_tpu_torch.align.bitwave import batch_score_bitwave
 
     args, kw = items[0]
-    k = batch_score_bitwave(*args, kind=kind, **kw)
-    plain_ms, p = timed(torch, lambda x: scan.batch_score(*x, **kw), args)
-    ms = _kernel_ms(torch, lambda *a, **k_: batch_score_bitwave(*a, kind=kind, **k_), items)
-    res.add(f"bitwave_{kind}", where, shape, max_err(torch, k, p), ms, plain_ms)
-    return p
+    fn = screen_fn(kernel)
+    k = fn(*args, kind=kind, **kw)
+    if plain is None:
+        plain_ms, p = timed(torch, lambda x: scan.batch_score(*x, **kw), args)
+    else:
+        p, plain_ms = plain
+    ms = _kernel_ms(torch, lambda *a, **k_: fn(*a, kind=kind, **k_), items)
+    res.add(torch, f"{kernel}_{kind}", where, shape, max_err(torch, k, p), ms, plain_ms,
+            args, kw, k)
+    return p, plain_ms, k
 
 
 def check_parents(torch, res, items, where, shape):
@@ -155,7 +254,7 @@ def check_parents(torch, res, items, where, shape):
     k = tbwave.batch_parents(*args, **kw)
     plain_ms, p = timed(torch, lambda x: tbwave.batch_parents_plain(*x, **kw), args)
     ms = _kernel_ms(torch, tbwave.batch_parents, items)
-    res.add("tbwave", where, shape, max_err(torch, k, p), ms, plain_ms)
+    res.add(torch, "tbwave", where, shape, max_err(torch, k, p), ms, plain_ms, args, kw, k)
 
 
 def check_walk(torch, res, items, where, shape):
@@ -166,7 +265,7 @@ def check_walk(torch, res, items, where, shape):
     k = tbwave.walk_parents(*args, **kw)
     plain_ms, p = timed(torch, lambda y: tbwave.walk_parents_plain(*y, **kw), args)
     ms = _kernel_ms(torch, tbwave.walk_parents, items)
-    res.add("walk", where, shape, max_err(torch, k, p), ms, plain_ms)
+    res.add(torch, "walk", where, shape, max_err(torch, k, p), ms, plain_ms, args, kw, k)
 
 
 def warm_plain(torch, dev):
@@ -185,8 +284,9 @@ def warm_plain(torch, dev):
 
 def phase_kernels(torch, dev, res):
     from pacbioassembly_tpu_torch.align import scan, tbwave
+    from pacbioassembly_tpu_torch.align.dispatch import exact_align
     from pacbioassembly_tpu_torch.align.screen import size_bucket
-    from pacbioassembly_tpu_torch.host import exact_align, pbcore
+    from pacbioassembly_tpu_torch.native import pbcore
 
     warm_plain(torch, dev)
     rng = np.random.default_rng(2024)
@@ -204,13 +304,19 @@ def phase_kernels(torch, dev, res):
         batches = [up(make_pairs(rng, B, LB, LA)) for _ in range(4)]
         kw = dict(la_max=LA, w_max=W, ratio=ratio)
         shape = f"B={B} LA={LA} LB={LB} W={W} R={ratio}"
-        p = check_score(torch, res, kind, [(x, kw) for x in batches], "synthetic", shape)
+        items = [(x, kw) for x in batches]
+        p, plain_ms, k1 = check_score(torch, res, "bitwave", kind, items, "synthetic", shape)
+        _, _, k3 = check_score(torch, res, "rowdp", kind, items, "synthetic", shape,
+                               plain=(p, plain_ms))
+        if max_err(torch, k3, k1) != 0:
+            raise AssertionError(f"{shape}: K3 != K1")
         n_acc = int(p.accept.sum())
         failed = int(((~p.accept) & (p.dp_rows > 10) & (p.dp_rows < LB // 2)).sum())
         if not (0 < n_acc < B and failed > 0):
             raise AssertionError(f"{shape}: degenerate inputs ({n_acc} of {B} accepted, "
                                  f"{failed} early-failed)")
-        log(f"[kernels:synthetic] ... {n_acc} accepted, {failed} early-failed")
+        log(f"[kernels:synthetic] ... K3 == K1 field by field; {n_acc} accepted, "
+            f"{failed} early-failed")
         if LB == BUCKETS[0]:
             native = (batches[0], kw, p)
 
@@ -252,22 +358,31 @@ def phase_kernels(torch, dev, res):
 
 
 class MainPathInputs:
-    """Keeps the inputs of the main path's first launches of every kernel
-    variant, so that each variant can be held against its plain version
-    at the slice's own shapes. A variant is one kernel at one static
-    geometry: K1 by launch kind and (LA, LB, W, R), K2 by (LA, W), W by W.
-    Installs thin wrappers over the names assemble/gather.py calls; each
-    wrapper copies its inputs and calls the real kernel wrapper."""
+    """Keeps the inputs of a path's first launches of every kernel variant,
+    so that each variant can be held against its plain version at the
+    path's own shapes. A variant is one kernel at one static geometry: a
+    screening kernel by launch kind and (LA, LB, W, R), K2 by (LA, W), W by
+    W. Installs thin wrappers over the kernel wrappers the paths call (the
+    screening wrappers' module attributes, which align/screen.py looks up
+    at call time, and the names assemble/gather.py calls); each copies its
+    inputs and calls the real wrapper. `kernels` limits what is kept."""
 
     KEEP = 3  # launches kept per variant and batch size
 
-    def __init__(self, gather):
-        self.gather = gather
+    def __init__(self, kernels=("bitwave", "rowdp", "tbwave", "walk")):
+        from pacbioassembly_tpu_torch.align import bitwave, wavefront
+        from pacbioassembly_tpu_torch.assemble import gather
+
+        self.kernels = kernels
+        self.slots = ((bitwave, "batch_score_bitwave"), (wavefront, "batch_score_rowdp"),
+                      (gather, "batch_parents"), (gather, "walk_parents"))
+        self.real = [getattr(m, n) for m, n in self.slots]
         self.calls: dict = {}   # (kernel, geometry) -> {B: launches}
         self.inputs: dict = {}  # (kernel, geometry, B) -> [(args, kw), ...]
-        self.real = (gather.batch_score_bitwave, gather.batch_parents, gather.walk_parents)
 
     def _keep(self, kernel, geom, args, kw):
+        if not kernel.startswith(self.kernels):
+            return
         B = int(args[0].shape[0])
         per_b = self.calls.setdefault((kernel, geom), {})
         per_b[B] = per_b.get(B, 0) + 1
@@ -276,12 +391,14 @@ class MainPathInputs:
             kept.append((tuple(x.clone() for x in args), dict(kw)))
 
     def install(self):
-        score, parents, walk = self.real
+        score_k1, score_k3, parents, walk = self.real
 
-        def score_kept(a, la, b, lb, **kw):
-            geom = (kw["la_max"], b.shape[1], kw["w_max"], kw["ratio"])
-            self._keep(f"bitwave_{kw['kind']}", geom, (a, la, b, lb), kw)
-            return score(a, la, b, lb, **kw)
+        def screening(name, real):
+            def kept(a, la, b, lb, **kw):
+                geom = (kw["la_max"], b.shape[1], kw["w_max"], kw["ratio"])
+                self._keep(f"{name}_{kw['kind']}", geom, (a, la, b, lb), kw)
+                return real(a, la, b, lb, **kw)
+            return kept
 
         def parents_kept(a, la, b, lb, **kw):
             self._keep("tbwave", (kw["la_max"], kw["w_max"]), (a, la, b, lb), kw)
@@ -291,12 +408,14 @@ class MainPathInputs:
             self._keep("walk", (kw["w_max"],), args, kw)
             return walk(*args, **kw)
 
-        g = self.gather
-        g.batch_score_bitwave, g.batch_parents, g.walk_parents = score_kept, parents_kept, walk_kept
+        wrapped = (screening("bitwave", score_k1), screening("rowdp", score_k3),
+                   parents_kept, walk_kept)
+        for (mod, name), fn in zip(self.slots, wrapped):
+            setattr(mod, name, fn)
 
     def remove(self):
-        g = self.gather
-        g.batch_score_bitwave, g.batch_parents, g.walk_parents = self.real
+        for (mod, name), fn in zip(self.slots, self.real):
+            setattr(mod, name, fn)
 
     def variants(self):
         """(kernel, geometry, launches, modal B, kept inputs at that B)."""
@@ -305,33 +424,54 @@ class MainPathInputs:
             yield kernel, geom, sum(per_b.values()), B, self.inputs[(kernel, geom, B)]
 
 
-def phase_main_path_kernels(torch, res, kept: MainPathInputs):
-    """Every kernel variant the slice launched, against its plain version
-    on the slice's own inputs (its most frequent batch size)."""
+def run_path(torch, name, kept, used, fn):
+    """Drive one path with every launch count set to 0 just before it and
+    read just after; the kernels in `used` must have launched, no other
+    kernel and no plain version. Returns (fn's result, counts)."""
+    from pacbioassembly_tpu_torch import _build
+
+    kept.install()
+    try:
+        _build.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+    finally:
+        kept.remove()
+    ran = {k for k, v in counts.items() if v}
+    if ran != set(used):
+        raise AssertionError(f"[{name}] launched {sorted(ran)}, expected exactly {sorted(used)}: {counts}")
+    log(f"[{name}] launches {{{', '.join(f'{k}: {counts[k]}' for k in sorted(ran))}}}, "
+        f"every other kernel and every plain version 0")
+    return out, counts
+
+
+def phase_main_path_kernels(torch, res, kept: MainPathInputs, path):
+    """Every kernel variant a path launched, against its plain version on
+    the path's own inputs (its most frequent batch size)."""
     seen = set()
     for kernel, geom, n, B, items in kept.variants():
         kw = items[0][1]
-        if kernel.startswith("bitwave"):
+        if kernel.startswith(("bitwave", "rowdp")):
             LA, LB, W, R = geom
             items = [(a, {k: v for k, v in w.items() if k != "kind"}) for a, w in items]
-            check_score(torch, res, kw["kind"], items, "main-path",
+            check_score(torch, res, kernel.split("_")[0], kw["kind"], items, "main-path",
                         f"B={B} LA={LA} LB={LB} W={W} R={R}")
         elif kernel == "tbwave":
             check_parents(torch, res, items, "main-path",
                           f"Bp={B} LA={geom[0]} W={geom[1]} rows={kw['rows_max']}")
         else:
             check_walk(torch, res, items, "main-path", f"Bp={B} W={geom[0]} E={kw['e_max']}")
-        res.rows[-1].update(launches=n)
-        log(f"[kernels:main-path] ... the slice launched this variant {n} times")
+        res.rows[-1].update(launches=n, path=path)
+        log(f"[kernels:main-path] ... the {path} path launched this variant {n} times")
         seen.add(kernel)
-    from pacbioassembly_tpu_torch import _build
-
-    if seen != set(_build.KERNELS):
-        raise AssertionError(f"kernels with no main-path inputs kept: {set(_build.KERNELS) - seen}")
+    return seen
 
 
 def simulate_store(genome_len, coverage, mean_read_len, error, seed, max_read_len=19_000):
-    from pacbioassembly_tpu_torch.host import ReadStore, SimConfig, binary_io, simulate
+    from pacbioassembly_tpu_torch.assemble import ReadStore
+    from pacbioassembly_tpu_torch.codec import binary_io
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 
     sim = SimConfig(
         genome_len=genome_len, coverage=coverage, mean_read_len=mean_read_len,
@@ -378,7 +518,8 @@ def device_view(trace_path: str) -> str:
         t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
         spans.append((t0, t0 + dur))
         if cat == "kernel":
-            m = re.search(r"(bitwave_kernel<\d+>|tbwave_kernel|walk_kernel)", e.get("name", ""))
+            m = re.search(r"(bitwave_kernel<\d+>|wavefront_kernel|tbwave_kernel|walk_kernel)",
+                          e.get("name", ""))
             name = m.group(1) if m else "other kernels"
         else:
             name = "copies and memsets"
@@ -399,92 +540,184 @@ def device_view(trace_path: str) -> str:
             f"device time by kernel: {parts}")
 
 
-def phase_slice(torch, dev, genome_len=4_600_000, max_round=60):
-    from pacbioassembly_tpu_torch import _build
-    from pacbioassembly_tpu_torch.assemble import gather
-    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
-    from pacbioassembly_tpu_torch.host import AssemblyConfig, dna
+def state_of(asm) -> dict:
+    """What two engines on one trajectory must agree on."""
+    ref = asm.ref
+    return {
+        "history": [dataclasses.asdict(s) for s in asm.history],
+        "contig": ref.text().copy(),
+        "votes": [getattr(ref, f)[ref.beg : ref.end].copy() for f in ("sel", "sup", "total")],
+        "surviving": list(asm.surviving),
+    }
 
-    t0 = time.perf_counter()
-    genome, reads = simulate_store(genome_len, 30.0, 2500, 0.03, 11)
-    log(f"[slice] simulated {genome_len / 1e6:.1f} Mb @ 30x: {len(reads)} reads in {time.perf_counter() - t0:.1f} s")
-    patterns = dna.load_patterns(SEEDS)
-    kept = MainPathInputs(gather)
+
+def same_state(a: dict, b: dict) -> bool:
+    return (a["history"] == b["history"] and np.array_equal(a["contig"], b["contig"])
+            and all(np.array_equal(x, y) for x, y in zip(a["votes"], b["votes"]))
+            and a["surviving"] == b["surviving"])
+
+
+def run_slice(torch, asm, name, max_round, kept, used):
+    """Drive one engine to max_round on its own metrics log, then report
+    s/round and phases. Returns the launch counts."""
     with tempfile.TemporaryDirectory() as tmp:
         metrics = os.path.join(tmp, "metrics.jsonl")
-        cfg = AssemblyConfig(
-            engine="batch", rng_seed=7, pattern_schedule="roundrobin", max_round=max_round,
-            max_seq_len=len(genome) + 500_000, metrics_path=metrics,
-        )
+        asm.cfg = dataclasses.replace(asm.cfg, max_round=max_round, metrics_path=metrics)
         t0 = time.perf_counter()
-        asm = BatchAssembler(cfg, reads, patterns, device=dev)
-        init_len = asm.ref.length()
-        builder = asm._builder()
-        if builder is None:
-            raise AssertionError("read matrix does not fit the device matrix cap")
-        torch.cuda.synchronize()
-        log(f"[slice] set-up {time.perf_counter() - t0:.1f} s (device read matrix "
-            f"{builder.reads_mat.numel() / 1e9:.2f} GB)")
-        kept.install()
-        try:
-            _build.reset_counts()
-            t0 = time.perf_counter()
+
+        def drive():
             asm.run(out=None)
-            while max(s.ntrials for s in asm.history) < cfg.prefilter_min_batch and asm.nround < 200:
-                log(f"[slice] no round reached {cfg.prefilter_min_batch} candidates by round "
-                    f"{asm.nround}: raising the round cap by 20")
+            # the prefilter needs a round with enough candidates
+            while (max(s.ntrials for s in asm.history) < asm.cfg.prefilter_min_batch
+                   and asm.nround < 200):
+                log(f"[{name}] no round reached {asm.cfg.prefilter_min_batch} candidates by "
+                    f"round {asm.nround}: raising the round cap by 20")
                 asm.cfg = dataclasses.replace(asm.cfg, max_round=asm.nround + 20)
                 asm.run(out=None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(_build.LAUNCHES)
-        finally:
-            kept.remove()
+
+        _, counts = run_path(torch, name, kept, used, drive)
+        wall = time.perf_counter() - t0
         with open(metrics) as fh:
             rounds = [json.loads(line) for line in fh]
-        rounds = [r for r in rounds if r["event"] == "round"]
+    rounds = [r for r in rounds if r["event"] == "round"]
+    rs = np.array([r["round_s"] for r in rounds])
+    cands = [s.ntrials for s in asm.history]
+    log(f"[{name}] {asm.nround} rounds in {wall:.1f} s: {len(asm.reads) - len(asm.surviving)} of "
+        f"{len(asm.reads)} reads consumed, contig {asm.ref.length()} bp, candidates/round max "
+        f"{max(cands)} median {int(np.median(cands))}, s/round p50 "
+        f"{np.percentile(rs, 50):.4f} p95 {np.percentile(rs, 95):.4f}")
+    phases = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s",
+              "prefilter_s", "fullscreen_s", "tb_s", "host_commit_s", "elect_s")
+    half = rounds[len(rounds) // 2:]
+    log(f"[{name}] second-half mean s/round by phase: " + ", ".join(
+        f"{k} {np.mean([r.get(k, 0.0) for r in half]):.4f}" for k in phases))
+    return counts
 
-        if any(counts[k] == 0 for k in _build.KERNELS):
-            raise AssertionError(f"a kernel of the main path never launched: {counts}")
-        if any(counts[k] != 0 for k in _build.PLAIN):
-            raise AssertionError(f"a plain version ran on the main path: {counts}")
-        consumed = len(reads) - len(asm.surviving)
-        if consumed <= 0 or asm.ref.length() <= init_len:
-            raise AssertionError("the slice consumed no reads or the contig did not grow")
-        share = kmer_share(asm.ref.text(), genome)
-        if share < 0.5:
-            raise AssertionError(f"only {share:.2f} of the contig's 16-mers are in the genome")
-        rs = np.array([r["round_s"] for r in rounds])
-        cands = [s.ntrials for s in asm.history]
-        log(f"[slice] {asm.nround} rounds in {wall:.1f} s: {consumed} of {len(reads)} reads "
-            f"consumed, contig {init_len} -> {asm.ref.length()} bp ({share:.3f} of its 16-mers "
-            f"in the genome), candidates/round max {max(cands)} median {int(np.median(cands))}, "
-            f"s/round p50 {np.percentile(rs, 50):.4f} p95 {np.percentile(rs, 95):.4f}")
-        log(f"[slice] launches {counts}")
-        phases = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s",
-                  "prefilter_s", "fullscreen_s", "tb_s", "host_commit_s", "elect_s")
-        half = rounds[len(rounds) // 2:]
-        log("[slice] second-half mean s/round by phase: " + ", ".join(
-            f"{k} {np.mean([r.get(k, 0.0) for r in half]):.4f}" for k in phases))
 
-        # device view: the next rounds under the engine's own profiler option
+def profile_rounds(torch, asm, name, n):
+    """n more rounds under the engine's own profiler option."""
+    with tempfile.TemporaryDirectory() as tmp:
         first = asm.nround + 1
         trace_dir = os.path.join(tmp, "trace")
-        asm.cfg = dataclasses.replace(asm.cfg, max_round=asm.nround + PROFILED_ROUNDS,
+        asm.cfg = dataclasses.replace(asm.cfg, max_round=asm.nround + n,
                                       profile_dir=trace_dir, metrics_path=None)
         t0 = time.perf_counter()
         asm.run(out=None)
         torch.cuda.synchronize()
         wall_p = time.perf_counter() - t0
         view = device_view(os.path.join(trace_dir, "trace.json"))
-        log(f"[device-view] rounds {first}-{asm.nround} under torch.profiler "
-            f"({wall_p:.3f} s on the host clock with the trace export): {view}")
-    return counts, kept
+    asm.cfg = dataclasses.replace(asm.cfg, profile_dir=None)
+    log(f"[device-view:{name}] rounds {first}-{asm.nround} under torch.profiler "
+        f"({wall_p:.3f} s on the host clock with the trace export): {view}")
+
+
+def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
+    """The K1 path, then the row-DP path on the same store; returns
+    (per-path counts, per-path kept inputs, row-DP engine, genome)."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+
+    t0 = time.perf_counter()
+    genome, reads = simulate_store(genome_len, 30.0, 2500, 0.03, 11)
+    log(f"[slice] simulated {genome_len / 1e6:.1f} Mb @ 30x: {len(reads)} reads in {time.perf_counter() - t0:.1f} s")
+    patterns = dna.load_patterns(SEEDS)
+    cfg = AssemblyConfig(
+        engine="batch", rng_seed=7, pattern_schedule="roundrobin", max_round=max_round,
+        max_seq_len=len(genome) + 500_000,
+    )
+    t0 = time.perf_counter()
+    k1 = BatchAssembler(cfg, reads, patterns, device=dev, screen_kernel="bitwave")
+    init_len = k1.ref.length()
+    builder = k1._builder()
+    if builder is None:
+        raise AssertionError("read matrix does not fit the device matrix cap")
+    torch.cuda.synchronize()
+    log(f"[slice] set-up {time.perf_counter() - t0:.1f} s (device read matrix "
+        f"{builder.reads_mat.numel() / 1e9:.2f} GB)")
+
+    kept = {"bitwave slice": MainPathInputs(), "rowdp slice": MainPathInputs(("rowdp",))}
+    counts = {}
+    counts["bitwave slice"] = run_slice(
+        torch, k1, "bitwave slice", max_round, kept["bitwave slice"],
+        ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"))
+    if len(reads) - len(k1.surviving) <= 0 or k1.ref.length() <= init_len:
+        raise AssertionError("the slice consumed no reads or the contig did not grow")
+    share = kmer_share(k1.ref.text(), genome)
+    if share < 0.5:
+        raise AssertionError(f"only {share:.2f} of the contig's 16-mers are in the genome")
+    log(f"[bitwave slice] contig {init_len} -> {k1.ref.length()} bp, {share:.3f} of its 16-mers "
+        f"in the genome")
+    snap = state_of(k1)
+    rounds = k1.nround
+    profile_rounds(torch, k1, "bitwave slice", PROFILED_ROUNDS["bitwave"])
+
+    # the row-DP path: same reads, trial seeds and device read matrix
+    rowdp = BatchAssembler(cfg, reads, patterns, device=dev, screen_kernel="rowdp",
+                           trial_cache=k1._trial_cache, device_builder=k1._device_builder)
+    del k1
+    counts["rowdp slice"] = run_slice(
+        torch, rowdp, "rowdp slice", rounds, kept["rowdp slice"],
+        ("rowdp_prefilter", "rowdp_fullscreen", "tbwave", "walk"))
+    if not same_state(state_of(rowdp), snap):
+        raise AssertionError(f"the row-DP path's state at round {rounds} differs from the K1 path's")
+    log(f"[rowdp slice] RoundStats, contig bytes, votes and surviving reads equal the K1 "
+        f"path's at round {rounds}")
+    profile_rounds(torch, rowdp, "rowdp slice", PROFILED_ROUNDS["rowdp"])
+    return counts, kept, rowdp, genome, snap
+
+
+def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_other=500):
+    """Map 2,000 reads onto the row-DP path's contig with K3 and with K1."""
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.tools import cli, locate
+
+    reads = rowdp.reads
+    surviving = set(rowdp.surviving)
+    consumed = [i for i in range(len(reads)) if i not in surviving]
+    rng = np.random.default_rng(3)
+    pick = np.sort(np.concatenate([
+        rng.choice(consumed, n_consumed, replace=False),
+        rng.choice(sorted(surviving), n_other, replace=False),
+    ]))
+    seqs = [reads.codes(int(i)).copy() for i in pick]
+    pattern = dna.load_patterns(SEEDS)[0]
+    tsv = {}
+    for kernel in ("rowdp", "bitwave"):
+        name = f"{kernel} locate"
+        kept[name] = MainPathInputs((kernel,))
+        t0 = time.perf_counter()
+        (rows, nproc), counts[name] = run_path(
+            torch, name, kept[name], (f"{kernel}_locate",),
+            lambda: locate.map_reads(contig, pattern, seqs, 0.15, device=dev,
+                                     screen_kernel=kernel))
+        wall = time.perf_counter() - t0
+        tsv[kernel] = rows
+        summary = locate.residual_from_rows(rows, nproc)
+        log(f"[{name}] {nproc} reads, {summary['mapped']} mapped in {wall:.2f} s; residual_error "
+            f"{summary['residual_error']}, mean cost per read base "
+            f"{summary['mean_cost_per_read_base']}")
+    if tsv["rowdp"] != tsv["bitwave"]:
+        raise AssertionError("locate: the K3 and K1 TSVs differ")
+    mapped = {r[0] for r in tsv["rowdp"]}
+    n_in = sum(1 for q, i in enumerate(pick) if int(i) not in surviving and q in mapped)
+    if n_in < n_consumed // 2:
+        raise AssertionError(f"locate: only {n_in} of {n_consumed} consumed reads mapped")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    cli.locate_host_loop(contig, pattern, seqs[:100], 0.15, out=out)
+    host = [tuple(int(x) for x in line.split("\t")) for line in out.getvalue().splitlines()]
+    if host != [r for r in tsv["rowdp"] if r[0] < 100]:
+        raise AssertionError("locate: the first 100 reads differ from the host loop")
+    log(f"[locate] K3 TSV == K1 TSV ({len(tsv['rowdp'])} rows, {n_in} of {n_consumed} consumed "
+        f"reads mapped); first 100 reads == host loop ({len(host)} rows, "
+        f"{time.perf_counter() - t0:.2f} s)")
 
 
 def phase_two_devices(torch):
     from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
-    from pacbioassembly_tpu_torch.host import AssemblyConfig, dna
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
 
     _, reads = simulate_store(60_000, 12.0, 1200, 0.03, 5, max_read_len=2000)
     cfg = AssemblyConfig(engine="batch", rng_seed=7, pattern_schedule="roundrobin",
@@ -500,38 +733,37 @@ def phase_two_devices(torch):
         log(f"[two-devices] {name}: {asm.nround} rounds, contig {asm.ref.length()} bp, "
             f"{len(reads) - len(asm.surviving)} reads consumed, {time.perf_counter() - t0:.1f} s")
     (g, gout), (c, cout) = runs["cuda"], runs["cpu"]
-    if gout != cout or g.history != c.history or g.surviving != c.surviving:
+    if gout != cout or not same_state(state_of(g), state_of(c)):
         raise AssertionError("cuda and cpu runs differ")
-    for f in ("sel", "sup", "total"):
-        if not np.array_equal(getattr(g.ref, f)[g.ref.beg : g.ref.end],
-                              getattr(c.ref, f)[c.ref.beg : c.ref.end]):
-            raise AssertionError(f"cuda and cpu {f} differ")
     log("[two-devices] contig bytes, sel/sup/total and surviving reads equal")
 
 
-REPLACES = {
-    "bitwave_prefilter": ("pacbioassembly_tpu_torch/csrc/bitwave.cu",
-                          "pacbioassembly_tpu/align/bitwave.py:148"),
-    "bitwave_fullscreen": ("pacbioassembly_tpu_torch/csrc/bitwave.cu",
-                           "pacbioassembly_tpu/align/bitwave.py:148"),
-    "tbwave": ("pacbioassembly_tpu_torch/csrc/tbwave.cu",
-               "pacbioassembly_tpu/align/tbwave.py:58"),
-    "walk": ("pacbioassembly_tpu_torch/csrc/walk.cu",
-             "pacbioassembly_tpu/align/tbwave.py:254"),
+ROUTES = {
+    "bitwave": ("pacbioassembly_tpu_torch/csrc/bitwave.cu", "pacbioassembly_tpu/align/bitwave.py:148"),
+    "rowdp": ("pacbioassembly_tpu_torch/csrc/wavefront.cu", "pacbioassembly_tpu/align/wavefront.py:67"),
+    "tbwave": ("pacbioassembly_tpu_torch/csrc/tbwave.cu", "pacbioassembly_tpu/align/tbwave.py:58"),
+    "walk": ("pacbioassembly_tpu_torch/csrc/walk.cu", "pacbioassembly_tpu/align/tbwave.py:254"),
 }
 
 
 def kernel_line(res: Results, counts) -> list[dict]:
-    """One entry per kernel counter; ms and plain_ms at the main path's
-    variant with the most launches."""
+    """One entry per kernel counter; ms, plain_ms and bound_ms at the
+    paths' variant with the most launches; launches summed over the
+    paths (each path's counts were read right after it)."""
+    from pacbioassembly_tpu_torch import _build
+
     out = []
-    for k, (src, repl) in REPLACES.items():
+    for k in _build.KERNELS:
+        src, repl = ROUTES[k.split("_")[0]]
         main = [r for r in res.rows if r["kernel"] == k and r["where"] == "main-path"]
+        if not main:
+            raise AssertionError(f"kernel {k} has no main-path replay")
         top = max(main, key=lambda r: r["launches"])
         out.append({
             "name": k, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts[k], "max_abs_err": res.err[k],
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "shape": top["shape"],
+            "launches": sum(c[k] for c in counts.values()), "max_abs_err": res.err[k],
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "shape": top["shape"],
         })
     return out
 
@@ -547,8 +779,10 @@ def main() -> int:
 
     t_all = time.perf_counter()
     smi = nvidia_smi()
+    clock = float(nvidia_smi("clocks.max.sm").split()[0])
     name = torch.cuda.get_device_name(0)
-    log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
+    log(f"[device] {smi}, max SM clock {clock:.0f} MHz | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {name}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.library()
@@ -556,11 +790,16 @@ def main() -> int:
     log(f"[device] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"({'built' if built is not None else 'cached'}: nvcc {built or 0:.1f} s)")
 
-    res = Results()
+    res = Results(clock)
     phase_kernels(torch, dev, res)
-    counts, kept = phase_slice(torch, dev)
-    phase_main_path_kernels(torch, res, kept)
-    del kept
+    counts, kept, rowdp, genome, _ = phase_slices(torch, dev)
+    phase_locate(torch, dev, rowdp, rowdp.ref.text().copy(), counts, kept)
+    seen = set()
+    for path, k in kept.items():
+        seen |= phase_main_path_kernels(torch, res, k, path)
+    if seen != set(_build.KERNELS):
+        raise AssertionError(f"kernels with no main-path inputs kept: {set(_build.KERNELS) - seen}")
+    del kept, rowdp
     phase_two_devices(torch)
 
     kernels = kernel_line(res, counts)

@@ -1,27 +1,30 @@
-"""pacbioassembly_tpu_torch — the batch assembly engine on PyTorch + CUDA.
+"""pacbioassembly_tpu_torch — the assembly engine on PyTorch + CUDA.
 
-A port of `pacbioassembly_tpu`'s main path (`assemble --engine batch`, one
-device, one contig) to PyTorch, with the Pallas TPU kernels rewritten as
-hand-written CUDA C++ kernels for Hopper (`csrc/`, built with nvcc for
-sm_90a at first use). The JAX package stays the reference: on the same
-inputs this package makes the same integer decisions, the same edit
-streams, the same vote deltas and the same contig bytes.
+A port of `pacbioassembly_tpu` to PyTorch, with the Pallas TPU kernels
+rewritten as hand-written CUDA C++ kernels for Hopper (`csrc/`, built with
+nvcc for sm_90a at first use). The JAX package stays the reference: on the
+same inputs this package makes the same integer decisions, the same edit
+streams, the same vote deltas and the same contig bytes. It imports
+neither jax nor anything of `pacbioassembly_tpu`.
 
-Host layers that import no JAX are shared, not copied: config, codec/,
-index/seedmap, consensus/state, align/{banded,dispatch,types}, native/,
-assemble/{reads,driver,checkpoint}, tools/simulate and utils/metrics come
-from `pacbioassembly_tpu` unchanged, all through `host.py`. This package
-never imports jax.
+Host layers, copied from the JAX package with only their imports (and the
+profiler context and the native build directory) changed: config,
+codec/{dna,binary_io}, align/{types,banded,dispatch}, native/pbcore (the
+AVX2 host aligner, built at first use into build/), index/seedmap,
+consensus/state, assemble/{reads,checkpoint,driver}, tools/simulate and
+utils/metrics. A checkpoint written by either engine resumes in the other.
 
-Layers (JAX module -> port module):
+Device layers (JAX module -> port module):
   align/scan.py      plain torch row DP: the screening oracle
-  align/screen.py    batch ladders, size buckets
+  align/screen.py    screening kernel choice (PBTPU_SCREEN_BACKEND), ladders, buckets
   align/bitwave.py   screening kernel K1 (csrc/bitwave.cu)
+  align/wavefront.py screening kernel K3, the row DP (csrc/wavefront.cu)
   align/tbwave.py    parent kernel K2 (csrc/tbwave.cu) + walk W (csrc/walk.cu)
   assemble/gather.py device read matrix + batch gather
   consensus/elect.py scatter-add vote delta (parallel/sharded.py elect)
   assemble/batch.py  BatchAssembler round loop
-  tools/cli.py       `python -m pacbioassembly_tpu_torch assemble ...`
+  tools/locate.py    batched read -> contig locator
+  tools/cli.py       `python -m pacbioassembly_tpu_torch assemble|locate|simulate ...`
 """
 
 __version__ = "0.1.0"

@@ -37,20 +37,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: dict[str, int] = {
-    # kernels (wrapper-side, only where the kernel is launched)
-    "bitwave_prefilter": 0,
-    "bitwave_fullscreen": 0,
-    "tbwave": 0,
-    "walk": 0,
-    # plain PyTorch versions (counted where they run)
-    "plain_batch_score": 0,
-    "plain_parents": 0,
-    "plain_walk": 0,
-}
-
-KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+# kernels (wrapper-side, counted only where the kernel is launched): the
+# screening kernels K1 (bitwave) and K3 (rowdp) by launch kind, the parent
+# kernel K2 (tbwave) and the walk W
+KERNELS = (
+    "bitwave_prefilter", "bitwave_fullscreen", "bitwave_locate",
+    "rowdp_prefilter", "rowdp_fullscreen", "rowdp_locate",
+    "tbwave", "walk",
+)
+# plain PyTorch versions (counted where they run)
 PLAIN = ("plain_batch_score", "plain_parents", "plain_walk")
+
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + PLAIN, 0)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -118,6 +116,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, I, P, P,               # peq scratch, PW, out, stream
     ]
     lib.pb_bitwave.restype = I
+    lib.pb_wavefront.argtypes = [
+        P, I, P, I, P, P, I,      # a, LA, b, LB, la, lb, B
+        P, P, P, I,               # early_thr, accept_min, band_tab, tab_len
+        I, I, I, I,               # la_max, w_max, maxn, maxm
+        P, P,                     # out, stream
+    ]
+    lib.pb_wavefront.restype = I
     lib.pb_tbwave.argtypes = [
         P, I, P, I,               # a, LA, b, LB
         P, P, P, P, I,            # lb, md, len_a, len_b, B

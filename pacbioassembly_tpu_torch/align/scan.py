@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..host import Constants
+from ..config import Constants
 
 INF = 1 << 28
 COMPACT = 32  # rows between working-set compactions (plain row DPs)

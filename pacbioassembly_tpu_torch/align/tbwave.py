@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..host import DELETE, INSERT, MATCH, Constants
+from ..config import Constants
+from .types import DELETE, INSERT, MATCH
 from .scan import COMPACT, INF, pair_geometry, threshold_tensors
 
 CHUNK = 128   # plane lane/row quantum (the JAX plane's shape)

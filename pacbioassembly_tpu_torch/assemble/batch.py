@@ -7,11 +7,12 @@ engine's screen-then-commit round:
      JAX module imports jax at load time);
   2. screening: a prefilter over the first cfg.prefilter_len bases at
      cfg.prefilter_ratio, then the full screen, each launch one device
-     gather (assemble/gather.py) feeding the bit-parallel kernel K1;
+     gather (assemble/gather.py) feeding the chosen screening kernel: the
+     bit-parallel K1 (default) or the row-DP K3 (`screen_kernel`);
   3. commit: interior alignments go through the parent kernel K2, the walk
      kernel W and one scatter-add elect (consensus/elect.py); growers take
      the host C++ aligner against the current reference;
-  4. host evolve (pacbioassembly_tpu/consensus/state.py, shared).
+  4. host evolve (consensus/state.py).
 
 Everything the round decides is integer-identical to the JAX engine: the
 same candidates, accept vectors, edit streams, vote deltas, RoundStats and
@@ -27,7 +28,6 @@ parents + walk) and multi-contig restarts.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from functools import partial
 from typing import Optional, TextIO
@@ -35,26 +35,19 @@ from typing import Optional, TextIO
 import numpy as np
 import torch
 
-from ..align.bitwave import batch_score_bitwave
-from ..align.screen import ladder_size, pad_batch, size_bucket
+from ..align import exact_align
+from ..align.screen import SCREEN_KERNELS, ladder_size, pad_batch, score_batch, size_bucket
+from ..codec import dna
+from ..config import AssemblyConfig, Constants
+from ..consensus import ConsensusRef
 from ..consensus.elect import elect_packed
 from ..device import resolve_device
-from ..host import (
-    AssemblyConfig,
-    ConsensusRef,
-    Constants,
-    MetricsLogger,
-    ReadStore,
-    RoundStats,
-    SeedIndex,
-    build_seedmap,
-    dna,
-    exact_align,
-    init_reference,
-    load_checkpoint,
-    save_checkpoint,
-)
+from ..index import SeedIndex, build_seedmap
+from ..utils import MetricsLogger, profiled
+from .checkpoint import load_checkpoint, save_checkpoint
+from .driver import RoundStats, init_reference
 from .gather import parents_and_walk
+from .reads import ReadStore
 
 SEED_LEN = Constants.SEED_LEN
 
@@ -233,23 +226,6 @@ def expand_candidates(
     return CandidateBatch(read_rep, j, forward, r_offset, rank), dropped, phase_s
 
 
-@contextlib.contextmanager
-def _profiled(trace_dir: Optional[str]):
-    """torch.profiler trace of the run into trace_dir (no-op when None)."""
-    if not trace_dir:
-        yield
-        return
-    import os
-
-    os.makedirs(trace_dir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-
-
 class BatchAssembler:
     def __init__(
         self,
@@ -258,10 +234,16 @@ class BatchAssembler:
         patterns: list[int],
         dump: Optional[TextIO] = None,
         device: str | torch.device = "cuda",
+        screen_kernel: str = "bitwave",
+        trial_cache: Optional[TrialSeedCache] = None,
+        device_builder=None,
     ):
         if not patterns:
             raise ValueError("no seed patterns")
+        if screen_kernel not in SCREEN_KERNELS:
+            raise ValueError(f"unknown screening kernel {screen_kernel!r} (expected {SCREEN_KERNELS})")
         self.device = resolve_device(device)
+        self.screen_kernel = screen_kernel
         self.cfg = cfg
         self.reads = reads
         self.patterns = patterns
@@ -280,9 +262,13 @@ class BatchAssembler:
         self.phase_s: dict = {}
         self._aligner = partial(exact_align, ratio=cfg.ratio)
         # the trial-seed cache and the device read matrix depend only on
-        # the read set
-        self._trial_cache = TrialSeedCache(reads, cfg)
-        self._device_builder = None  # lazy (assemble/gather.py)
+        # the read set: two engines on one read set may share them
+        self._trial_cache = trial_cache or TrialSeedCache(reads, cfg)
+        self._device_builder = device_builder  # lazy (assemble/gather.py)
+        if device_builder is not None and device_builder.device != self.device:
+            raise ValueError(
+                f"device builder on {device_builder.device}, engine on {self.device}"
+            )
 
     def _pick_pattern(self) -> int:
         if self.nfailure != 0:
@@ -404,6 +390,7 @@ class BatchAssembler:
                 lambda: builder.score(
                     self.ref, *vecs, LA=LAp, LB=LBp, w_max=Wp,
                     ratio=cfg.prefilter_ratio, kind="prefilter",
+                    screen_kernel=self.screen_kernel,
                 ),
             )
             keep[idxs] = packed[: len(idxs), 0] != 0
@@ -458,6 +445,7 @@ class BatchAssembler:
                     lambda: builder.score(
                         self.ref, *vecs, LA=LA, LB=LB, w_max=W,
                         ratio=cfg.ratio, kind="fullscreen",
+                        screen_kernel=self.screen_kernel,
                     ),
                 )
                 acc = packed[:, 0] != 0
@@ -465,7 +453,10 @@ class BatchAssembler:
             else:
                 def host_score():
                     a, la, b, lb = self._host_batch(cands, idxs, seg_len, ref_len, LB, LA)
-                    res = batch_score_bitwave(a, la, b, lb, la_max=LA, w_max=W, ratio=cfg.ratio)
+                    res = score_batch(
+                        a, la, b, lb, screen_kernel=self.screen_kernel, kind="fullscreen",
+                        la_max=LA, w_max=W, ratio=cfg.ratio,
+                    )
                     return [x.cpu().numpy() for x in res]
 
                 acc, _, ma, mb, _, rows_all = _timed_launch(
@@ -814,7 +805,7 @@ class BatchAssembler:
         if cfg.resume_path:
             load_checkpoint(cfg.resume_path, self)
         max_round = cfg.max_round if cfg.max_round is not None else 1 << 31
-        with _profiled(cfg.profile_dir):
+        with profiled(cfg.profile_dir):
             while self.nround < max_round:
                 if self._run_one(out, log, metrics):
                     break

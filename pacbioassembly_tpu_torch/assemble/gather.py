@@ -6,8 +6,9 @@ backward segment is the same forward-window rule on the reversed copy);
 the current reference window is uploaded once per reference version. Per
 candidate only five int32s cross the bus, and the (a, la, b, lb) batch is
 gathered on the device with plain advanced indexing, feeding straight
-into the kernels. (The TPU kernel's gather-avoiding block fetches are a TPU
-workaround and are not ported.)
+into the kernels: the chosen screening kernel (K1 or K3, align/screen.py)
+or the parent kernel and walk. (The TPU kernel's gather-avoiding block
+fetches are a TPU workaround and are not ported.)
 
 Semantics mirror BatchAssembler._materialize exactly (reference
 get_accessor ref_seq.h:282-286 and the spaced_seed.cpp:424-426 trial
@@ -24,8 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..align.bitwave import batch_score_bitwave
-from ..align.screen import ladder_size
+from ..align.screen import ladder_size, score_batch
 from ..align.tbwave import batch_parents, walk_parents
 
 
@@ -135,12 +135,15 @@ class DeviceBatchBuilder:
             v[0], v[1], v[2] != 0, v[3], v[4], LA, LB,
         )
 
-    def score(self, ref, read_row, j, fwd, prel, la, *, LA, LB, w_max, ratio, kind):
-        """Gather + score; returns host (B, 4) int32
-        [accept, matlen_a, dp_rows, matlen_b]."""
+    def score(
+        self, ref, read_row, j, fwd, prel, la, *, LA, LB, w_max, ratio, kind, screen_kernel,
+    ):
+        """Gather + score with the chosen screening kernel; returns host
+        (B, 4) int32 [accept, matlen_a, dp_rows, matlen_b]."""
         a, la2, b, lb = self.materialize(ref, read_row, j, fwd, prel, la, LA, LB)
-        res = batch_score_bitwave(
-            a, la2, b, lb, la_max=LA, w_max=w_max, ratio=ratio, kind=kind
+        res = score_batch(
+            a, la2, b, lb, screen_kernel=screen_kernel, kind=kind,
+            la_max=LA, w_max=w_max, ratio=ratio,
         )
         packed = torch.stack(
             [res.accept.to(torch.int32), res.matlen_a, res.dp_rows, res.matlen_b], dim=1

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..host import DELETE, INSERT, MATCH
+from ..align.types import DELETE, INSERT, MATCH
 
 
 def elect_packed(

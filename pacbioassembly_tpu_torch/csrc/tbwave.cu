@@ -16,6 +16,8 @@
 // of unreachable cells (>= INF) match the reference and the plane compares
 // bit for bit. Shared memory: 4 int32 rows of S (prev, two scan buffers, the
 // 16-row parent words) = 16*S bytes, 192 KB at the widest band (S = 12,032).
+// The row step (D and the doubling scan) is common.cuh's band_row, shared
+// with K3 (wavefront.cu).
 // What bounds it: one barrier per scan step, about log2(S) + 3 barriers per
 // DP row; the 32 pairs of a commit launch occupy 32 SMs. A warp-shuffle scan
 // and several pairs per block are later work.
@@ -59,57 +61,27 @@ __global__ void tbwave_kernel(
 
   // rows past len_a are inactive: parents 0 and the row state unchanged,
   // so the loop stops at len_a (the caller zero-fills the plane)
+  const Band g{W, S, md, lenb, lbq, LB, brow};
   const int nrows = min(lena, NRB * 16);
   for (int i = 1; i <= nrows; ++i) {
     const int r = (i - 1) & 15;
     const int ai = (i - 1 < LA) ? (int)arow[i - 1] : 0;
 
-    // D = min(diag, up) with the border cell (i, 0) = i
-    for (int k = tid; k < S; k += nt) {
-      const int j = k + i - W;
-      const bool validj = j >= 1 && j <= lenb && abs(k - W) <= md;
-      const int src = j - 1;
-      const int bj = (src >= 0 && src < lbq) ? (int)brow[min(src, LB - 1)] : -1;
-      const int diag = validj ? prev[k] + (bj != ai ? 1 : 0) : INF;
-      const int up_src = (k == S - 1) ? INF : prev[k + 1];
-      const int up = validj ? up_src + 1 : INF;
-      int D = min(diag, up);
-      if (j == 0 && i <= md) D = i;
-      buf0[k] = D;
-    }
-    __syncthreads();
-
-    // in-row INSERT chain: min-plus doubling prefix
-    int* src = buf0;
-    int* dst = buf1;
-    for (int sh = 1; sh < S; sh <<= 1) {
-      for (int k = tid; k < S; k += nt) {
-        const int shifted = (k < sh) ? INF : src[k - sh];
-        dst[k] = min(src[k], shifted + sh);
-      }
-      __syncthreads();
-      int* t = src;
-      src = dst;
-      dst = t;
-    }
+    // D step and the in-row INSERT chain (common.cuh)
+    const int* src = band_row(g, prev, buf0, buf1, i, ai);
+    int* dst = (src == buf0) ? buf1 : buf0;
 
     // cur = scanned value on live cells, INF elsewhere (into the free buffer)
     for (int k = tid; k < S; k += nt) {
-      const int j = k + i - W;
-      const bool validj = j >= 1 && j <= lenb && abs(k - W) <= md;
-      const bool border = j == 0 && i <= md;
-      dst[k] = (validj || border) ? src[k] : INF;
+      dst[k] = (band_valid(g, k, i) || band_border(g, k, i)) ? src[k] : INF;
     }
     __syncthreads();
 
     // parents, MATCH > INSERT > DELETE; then the row becomes prev
     for (int k = tid; k < S; k += nt) {
-      const int j = k + i - W;
-      const bool validj = j >= 1 && j <= lenb && abs(k - W) <= md;
-      const bool border = j == 0 && i <= md;
-      const int srcb = j - 1;
-      const int bj = (srcb >= 0 && srcb < lbq) ? (int)brow[min(srcb, LB - 1)] : -1;
-      const int diag = validj ? prev[k] + (bj != ai ? 1 : 0) : INF;
+      const bool validj = band_valid(g, k, i);
+      const bool border = band_border(g, k, i);
+      const int diag = validj ? band_diag(g, prev, k, i, ai) : INF;
       const int cur = dst[k];
       const int left_plus1 = (k == 0 ? INF : dst[k - 1]) + 1;
       int par = DELETE;

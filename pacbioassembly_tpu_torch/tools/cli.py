@@ -3,14 +3,20 @@
   assemble   iterative consensus assembly; `--engine batch` runs the port's
              batch engine on `--device cuda` (the CUDA kernels) or
              `--device cpu` (their plain versions); `--engine exact` runs
-             the shared sequential host engine
-  simulate   synthetic PacBio-style reads (shared tools/simulate.py)
+             the port's sequential host engine (assemble/driver.py)
+  locate     map stdin reads onto a finished contig (locator.cpp:41-96):
+             batched screening on `--device cuda|cpu`, or `--host-loop`,
+             the sequential exact-aligner loop
+  simulate   synthetic PacBio-style reads (tools/simulate.py)
 
 Usage: python -m pacbioassembly_tpu_torch <command> [args]
 
-The flags of `assemble` are those of the JAX CLI
-(pacbioassembly_tpu/tools/cli.py). `--contigs N > 1` is not ported yet: it
-needs tools/postprocess.py's contig dedupe (ROADMAP.md, queue A).
+The flags are those of the JAX CLI (pacbioassembly_tpu/tools/cli.py), plus
+`--device`. The screening kernel comes from PBTPU_SCREEN_BACKEND, read
+here once (align/screen.py::screen_kernel): unset or `bitpallas` for K1,
+`pallas` for K3, `scan` (CPU only) for the plain row DP; anything else
+raises. `--contigs N > 1` is not ported yet: it needs
+tools/postprocess.py's contig dedupe (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ import sys
 
 
 def cmd_assemble(args) -> int:
-    from ..host import Assembler, AssemblyConfig, ReadStore, dna
+    from ..align.screen import screen_kernel
+    from ..assemble import Assembler, ReadStore
+    from ..codec import dna
+    from ..config import AssemblyConfig
 
     if args.contigs > 1:
         raise NotImplementedError(
@@ -55,13 +64,87 @@ def cmd_assemble(args) -> int:
         if cfg.engine == "batch":
             from ..assemble.batch import BatchAssembler
 
-            asm = BatchAssembler(cfg, reads, patterns, dump=dump, device=args.device)
+            asm = BatchAssembler(
+                cfg, reads, patterns, dump=dump, device=args.device,
+                screen_kernel=screen_kernel(args.device),
+            )
         else:
             asm = Assembler(cfg, reads, patterns, dump=dump)
         asm.run(out=sys.stdout, log=sys.stderr if not args.quiet else None)
     finally:
         if dump:
             dump.close()
+    return 0
+
+
+def cmd_locate(args) -> int:
+    """Map stdin reads onto a contig; prints TSV
+    nseq, ref_pos, final_cost, len-j, diag_cost (locator.cpp:68-92).
+
+    Default path: batched screening over all (read, seed-offset,
+    candidate) triples on `--device` (tools/locate.py). --host-loop runs
+    the sequential per-triple exact aligner instead (the literal reference
+    loop shape); both produce identical TSV."""
+    from ..codec import dna
+
+    with open(args.contig) as fh:
+        contig = fh.read().split()[0]
+    # locator.cpp:57-60 converts N to A explicitly (C2I alone would map
+    # N to T).
+    contig = contig.replace("N", "A")
+    contig_codes = dna.text_to_codes(contig)
+    pattern = dna.parse_pattern(args.seed)
+    seqs = [dna.text_to_codes(w) for line in sys.stdin for w in line.split()]
+
+    if not args.host_loop:
+        from ..align.screen import screen_kernel
+        from .locate import locate_batched
+
+        return locate_batched(
+            contig_codes, pattern, seqs, args.ratio,
+            device=args.device, screen_kernel=screen_kernel(args.device),
+        )
+    return locate_host_loop(contig_codes, pattern, seqs, args.ratio)
+
+
+def locate_host_loop(contig_codes, pattern: int, seqs, ratio: float, out=None) -> int:
+    """The locator's sequential loop: per read, seed offsets j = 0..49,
+    candidates in index order, the exact aligner, first success wins."""
+    from ..align import exact_align
+    from ..codec import dna
+    from ..index import build_seedmap
+    from .locate import MAXM, MAXN, MAX_TRIAL_J, MIN_READ
+
+    out = sys.stdout if out is None else out
+    # full index of every position (locator.cpp:62-66)
+    idx, _ = build_seedmap(contig_codes, pattern, max_read_len=len(contig_codes))
+
+    nseq = 0
+    for seq in seqs:
+        if len(seq) < MIN_READ:
+            continue  # does NOT count: the reference ++nseq is skipped too
+        found = False
+        for j in range(MAX_TRIAL_J):
+            if j + 16 > len(seq):
+                break
+            key = dna.encode_seed(seq, j) & pattern
+            cands = idx.lookup(key)
+            if len(cands) == 0:
+                continue
+            seg = seq[j:]
+            for cand in cands:
+                ref = contig_codes[int(cand) :]
+                res = exact_align(seg, ref, ratio=ratio, maxn=MAXN, maxm=MAXM)
+                if res is not None and res.matlen_b > 0:
+                    out.write(
+                        f"{nseq}\t{int(cand)}\t{res.cost}\t{len(seq) - j}\t{res.diag_cost}\n"
+                    )
+                    found = True
+                    break
+            if found:
+                break
+        nseq += 1
+    print(f"totally {nseq} sequences processed", file=sys.stderr)
     return 0
 
 
@@ -118,9 +201,25 @@ def main(argv=None) -> int:
                         "PacBio CLR-like 1:12:4 (insertion-dominated)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--genome-out", default=None)
-    from ..host import cmd_simulate
+    from .simulate import cmd_simulate
 
     p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("locate", help="map reads onto a finished contig")
+    p.add_argument("contig")
+    p.add_argument("seed")
+    p.add_argument("-r", "--ratio", type=float, default=0.15)
+    p.add_argument(
+        "--host-loop",
+        action="store_true",
+        help="sequential per-triple exact aligner instead of batched screening",
+    )
+    p.add_argument(
+        "--device", default="cuda",
+        help="batched screening device: cuda (CUDA kernels) or cpu (plain "
+        "version); asking for cuda without a GPU is an error",
+    )
+    p.set_defaults(fn=cmd_locate)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,18 +1,26 @@
 """Port: state carried across engines. The JAX BatchAssembler runs 3
 rounds and checkpoints (assemble/checkpoint.py); the port resumes from
-that checkpoint for 3 more rounds. The result equals 6 uninterrupted JAX
-rounds: RoundStats, contig bytes, votes, surviving reads."""
+that checkpoint, with its own checkpoint code, for 3 more rounds. The
+result equals 6 uninterrupted JAX rounds: RoundStats (as dicts: each
+engine has its own class), contig bytes, votes, surviving reads."""
 
 import dataclasses
 import io
 
-import pytest
 import torch
 
 from pacbioassembly_tpu.assemble import ReadStore
 from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
 
-from torch_slice import assert_same_state, patterns, slice_config, write_fixture
+from torch_slice import (
+    assert_same_state,
+    history_dicts,
+    patterns,
+    port_config,
+    port_reads,
+    slice_config,
+    write_fixture,
+)
 
 torch.set_num_threads(1)
 
@@ -35,10 +43,10 @@ def test_port_resumes_jax_checkpoint(tmp_path, monkeypatch):
     jax_asm.run(out=io.StringIO())
     assert jax_asm.nround == 6
 
-    cfg = slice_config(fx, max_round=6, resume_path=ckpt)
-    port = BatchAssembler(cfg, ReadStore.from_file(fx["bin"], cfg), patterns(), device="cpu")
+    cfg = port_config(slice_config(fx, max_round=6, resume_path=ckpt))
+    port = BatchAssembler(cfg, port_reads(fx["bin"], cfg), patterns(), device="cpu")
     port.run(out=io.StringIO())
     assert port.nround == 6
-    assert port.history == jax_asm.history[3:]
+    assert history_dicts(port) == history_dicts(jax_asm)[3:]
     assert_same_state(port, jax_asm)
     assert dataclasses.asdict(port.history[-1])["nround"] == 6

@@ -10,9 +10,9 @@ import json
 import pytest
 import torch
 
-from pacbioassembly_tpu.assemble import ReadStore
-from pacbioassembly_tpu.config import AssemblyConfig
+from pacbioassembly_tpu_torch.assemble import ReadStore
 from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+from pacbioassembly_tpu_torch.config import AssemblyConfig
 from pacbioassembly_tpu_torch.tools.cli import main
 
 from torch_slice import patterns, write_fixture

@@ -4,19 +4,21 @@ fused gather (pacbioassembly_tpu/assemble/gather.py::_materialize_on_device)
 and the host packing path. Forward and backward candidates, ladder pad
 rows and the prefilter's truncation to the first LB bases. Byte-equal."""
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
 from pacbioassembly_tpu.align.screen import ladder_size, size_bucket
-from pacbioassembly_tpu.assemble import ReadStore
+from pacbioassembly_tpu.assemble import ReadStore as JaxReads
 from pacbioassembly_tpu.assemble.gather import DeviceBatchBuilder as JaxBuilder
-from pacbioassembly_tpu.codec.dna import load_patterns
-from pacbioassembly_tpu.config import AssemblyConfig
-from pacbioassembly_tpu.index import build_seedmap
+from pacbioassembly_tpu.config import AssemblyConfig as JaxConfig
+from pacbioassembly_tpu_torch.assemble import ReadStore
 from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler, expand_candidates
-from pacbioassembly_tpu_torch.assemble.gather import DeviceBatchBuilder
+from pacbioassembly_tpu_torch.codec.dna import load_patterns
+from pacbioassembly_tpu_torch.config import AssemblyConfig
+from pacbioassembly_tpu_torch.index import build_seedmap
 
 torch.set_num_threads(1)
 
@@ -42,7 +44,8 @@ def test_gather_matches_jax_builder_and_host_packing():
     seg_len, ref_len = asm._geometry(cands)
 
     port = asm._builder()
-    jaxb = JaxBuilder(reads, cfg)
+    jax_cfg = JaxConfig(**dataclasses.asdict(cfg))
+    jaxb = JaxBuilder(JaxReads.from_file(os.path.join(DATA, "synth_reads.bin"), jax_cfg), jax_cfg)
     assert port.ok and jaxb.ok
     np.testing.assert_array_equal(port.reads_mat.numpy(), np.asarray(jaxb.reads_mat))
     np.testing.assert_array_equal(port.read_len.numpy(), np.asarray(jaxb.read_len))

@@ -1,9 +1,10 @@
-"""Port: the package never imports jax (checked in a fresh interpreter,
-since this test process has jax loaded), chip_smoke.py reaches the shared
-host layers only through the port, and nothing falls back silently:
-asking for a GPU without one, a device type the port does not run on, or
-a kernel build without nvcc raises."""
+"""Port: the package imports neither jax nor anything of the JAX package
+(checked in a fresh interpreter, since this test process has both loaded,
+and by parsing every source), chip_smoke.py imports only the port, and
+nothing falls back silently: asking for a GPU without one, a device type
+the port does not run on, or a kernel build without nvcc raises."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -23,18 +24,18 @@ import torch
 torch.set_num_threads(1)
 import pacbioassembly_tpu_torch
 from pacbioassembly_tpu_torch import _build, device
-from pacbioassembly_tpu_torch.align import bitwave, scan, screen, tbwave
-from pacbioassembly_tpu_torch.assemble import batch, gather
+from pacbioassembly_tpu_torch.align import bitwave, scan, screen, tbwave, wavefront
+from pacbioassembly_tpu_torch.assemble import ReadStore, batch, gather
+from pacbioassembly_tpu_torch.codec import binary_io, dna
+from pacbioassembly_tpu_torch.config import AssemblyConfig
 from pacbioassembly_tpu_torch.consensus import elect
-from pacbioassembly_tpu_torch.tools import cli
-from pacbioassembly_tpu_torch.host import (
-    AssemblyConfig, ReadStore, SimConfig, binary_io, dna, simulate,
-)
+from pacbioassembly_tpu_torch.tools import cli, locate
+from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 import chip_smoke
 
-_, reads, _ = simulate(SimConfig(genome_len=6000, coverage=8.0, mean_read_len=700,
-                                 min_read_len=600, max_read_len=900, seed=2,
-                                 sub_rate=0.02, ins_rate=0.02, del_rate=0.02))
+genome, reads, _ = simulate(SimConfig(genome_len=6000, coverage=8.0, mean_read_len=700,
+                                      min_read_len=600, max_read_len=900, seed=2,
+                                      sub_rate=0.02, ins_rate=0.02, del_rate=0.02))
 path = os.path.join(tempfile.mkdtemp(), "r.bin")
 with open(path, "wb") as fh:
     binary_io.write_records(fh, reads)
@@ -43,7 +44,11 @@ asm = batch.BatchAssembler(cfg, ReadStore.from_file(path, cfg),
                            [dna.parse_pattern("1111111111111111")], device="cpu")
 asm.run(out=io.StringIO())
 assert asm.nround == 2 and asm.ref.length() > 0
-print("JAX_LOADED", "jax" in sys.modules, "PALLAS", any(m.startswith("jax") for m in sys.modules))
+rows, n = locate.map_reads(genome, dna.parse_pattern("1111111111111111"), reads[:6], 0.15,
+                           device="cpu", screen_kernel="rowdp")
+assert n == 6 and len(rows) >= 3
+print("JAX_LOADED", "jax" in sys.modules, "PALLAS", any(m.startswith("jax") for m in sys.modules),
+      "JAX_PACKAGE", sorted(m for m in sys.modules if m.split(".")[0] == "pacbioassembly_tpu"))
 """
 
 
@@ -55,23 +60,36 @@ def test_port_never_imports_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "JAX_LOADED False PALLAS False" in proc.stdout, proc.stdout
+    assert "JAX_LOADED False PALLAS False JAX_PACKAGE []" in proc.stdout, proc.stdout
+
+
+def _imports(path):
+    """Absolute module names imported anywhere in one source file."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports anything whose
+    root is pacbioassembly_tpu (nor jax): the port keeps its own copies."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "pacbioassembly_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 25
+    bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
+           if m.split(".")[0] in ("pacbioassembly_tpu", "jax")]
+    assert bad == []
 
 
 def test_chip_smoke_imports_only_the_port():
     """Every import in chip_smoke.py is the standard library, numpy, torch
     or the port itself: never jax, never the JAX package directly."""
-    import ast
-
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
-        tree = ast.parse(fh.read())
-    mods = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            mods.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            mods.add(node.module)
-    roots = {m.split(".")[0] for m in mods}
+    roots = {m.split(".")[0] for m in _imports(os.path.join(REPO, "chip_smoke.py"))}
     assert "pacbioassembly_tpu_torch" in roots
     assert roots <= set(sys.stdlib_module_names) | {"numpy", "torch", "pacbioassembly_tpu_torch"}, roots
 
@@ -100,5 +118,5 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_sources_cover_the_three_kernels():
     names = sorted(os.path.basename(s) for s in _build.sources())
-    assert names == ["bitwave.cu", "common.cuh", "tbwave.cu", "walk.cu"]
+    assert names == ["bitwave.cu", "common.cuh", "tbwave.cu", "walk.cu", "wavefront.cu"]
     assert set(_build.KERNELS) | set(_build.PLAIN) == set(_build.LAUNCHES)

@@ -4,7 +4,11 @@ substitutions, insertions and deletions, seed 8), with reads capped at
 1,000 bases and a 1.5 kb initial reference cut from the genome, so that
 every screen and commit launch stays in the 1024 size bucket. That keeps
 the JAX engine's per-shape XLA compiles, which dominate its CPU run time,
-to one shape per launch kind."""
+to one shape per launch kind.
+
+The fixture files are written with the JAX package's codec and simulator;
+`slice_config` builds the JAX engine's config and `port_config` the same
+config as the port's own class, so each engine gets its own types."""
 
 from __future__ import annotations
 
@@ -48,6 +52,25 @@ def slice_config(fx: dict, **kw) -> AssemblyConfig:
         max_round=6, prefilter_min_batch=1, initial_ref_path=fx["init"],
     )
     return dataclasses.replace(cfg, **kw)
+
+
+def port_config(cfg: AssemblyConfig):
+    """The same config as the port's own AssemblyConfig."""
+    from pacbioassembly_tpu_torch.config import AssemblyConfig as PortConfig
+
+    return PortConfig(**dataclasses.asdict(cfg))
+
+
+def port_reads(path: str, cfg):
+    """The port's own ReadStore of a fixture file."""
+    from pacbioassembly_tpu_torch.assemble import ReadStore as PortReads
+
+    return PortReads.from_file(path, cfg)
+
+
+def history_dicts(asm) -> list[dict]:
+    """RoundStats as dicts: each engine has its own RoundStats class."""
+    return [dataclasses.asdict(s) for s in asm.history]
 
 
 def patterns() -> list[int]:
