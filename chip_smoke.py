@@ -2,18 +2,23 @@
 """Smoke run of the PyTorch port (pacbioassembly_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k1-slice [--port DIR]   # only the K1 slice of 3, of DIR's port
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
   1. device: the card's name, power limit and top SM clock (nvidia-smi), the
-     build time;
+     build time and ptxas's report (registers, shared memory, spills) of
+     every kernel;
   2. kernels vs plain versions on the card, exact equality, on simulated
      overlaps at 3% and 15% error plus random non-overlaps: the screening
      kernels K1 (bitwave.cu) and K3 (wavefront.cu) at the prefilter geometry
      (B=4096, LB=128, W=58, R=0.45) and at the 2048, 4096 and 8192
      full-screen buckets (B=1024, R=0.3), K3 also held equal to K1 field by
      field; K2 (tbwave.cu) and W (walk.cu) at Bp=32 in the same three
-     buckets; a 256-pair sample against the native host aligner;
+     buckets; a 256-pair sample against the native host aligner; then each
+     kernel's launch shapes: K1's thread and warp paths at the prefilter's
+     2 words a stripe and K2 at each lanes-per-thread shape, each equal to
+     the wrapper's choice;
   3. the main path with K1 at E. coli scale: 4.6 Mb at 30x, reads of mean
      2,500, 3% uniform error, seed 11; BatchAssembler on cuda, rng_seed 7,
      round-robin over tests/data/seeds.txt, 60 rounds (more if no round has
@@ -357,6 +362,61 @@ def phase_kernels(torch, dev, res):
                    f"Bp=32 W={W} E={E} ({n_acc} accepted)")
 
 
+def phase_kernel_shapes(torch, dev):
+    """Each kernel's launch shapes on fresh synthetic batches, every output
+    equal to the wrapper's own choice's: K1's thread and warp paths at the
+    prefilter's 2 words a stripe, the only width both are built for, and
+    K2 at each lanes-per-thread shape its plane admits."""
+    from pacbioassembly_tpu_torch.align import bitwave, tbwave
+    from pacbioassembly_tpu_torch.align.screen import size_bucket
+    from pacbioassembly_tpu_torch.config import Constants
+
+    rng = np.random.default_rng(77)
+    lim = dict(maxn=Constants.ALIGNER_MAXN, maxm=Constants.ALIGNER_MAXM)
+
+    def up(batch):
+        return tuple(torch.from_numpy(x).to(dev) for x in batch)
+
+    def fastest(fn, batches):
+        return min(timed(torch, fn, x)[0] for x in batches for _ in range(2))
+
+    ratio = 0.45
+    words = 2
+    for B in (32768, 1024):
+        W = 32 * words - 1  # exactly `words` words a stripe
+        LB = int((W - 1) / ratio)
+        LA = LB + W + 1
+        batches = [up(make_pairs(rng, B, LB, LA)) for _ in range(2)]
+        kw = dict(la_max=LA, w_max=W, ratio=ratio, **lim)
+        auto = bitwave.batch_score_bitwave(*batches[0], **kw)
+        ms = {}
+        for path in ("thread", "warp"):
+            def fn(x, path=path):
+                return bitwave._launch(*x, kind="fullscreen", path=path, **kw)
+            if max_err(torch, fn(batches[0]), auto) != 0:
+                raise AssertionError(f"K1 {path} path != the wrapper's choice (B={B} W={W})")
+            ms[path] = fastest(fn, batches)
+        log(f"[kernels:shapes] K1 B={B} W={W} ({words} words): thread {ms['thread']:.3f} ms, "
+            f"warp {ms['warp']:.3f} ms; the wrapper takes the thread path")
+
+    for cap, rows in ((4096, 3584), (8192, 7168)):
+        LB, LA, W = size_bucket(cap, 0.3)
+        batches = [up(make_pairs(rng, 32, LB, LA, random_share=0.0)) for _ in range(2)]
+        kw = dict(la_max=LA, w_max=W, ratio=0.3, rows_max=rows)
+        auto = tbwave.batch_parents(*batches[0], **kw)
+        S, _ = tbwave.plane_dims(LA, W, rows)
+        parts = []
+        for lanes in (4, 8, 16):
+            if -(-S // lanes) > (1024 if lanes <= 8 else 768):
+                continue
+            def fn(x, lanes=lanes):
+                return tbwave._launch_parents(*x, lanes=lanes, **kw)
+            if max_err(torch, fn(batches[0]), auto) != 0:
+                raise AssertionError(f"K2 at {lanes} lanes a thread != the wrapper's choice")
+            parts.append(f"{lanes} lanes {fastest(fn, batches):.3f} ms")
+        log(f"[kernels:shapes] K2 Bp=32 LA={LA} W={W} rows={rows} (S={S}): " + ", ".join(parts))
+
+
 class MainPathInputs:
     """Keeps the inputs of a path's first launches of every kernel variant,
     so that each variant can be held against its plain version at the
@@ -518,7 +578,7 @@ def device_view(trace_path: str) -> str:
         t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
         spans.append((t0, t0 + dur))
         if cat == "kernel":
-            m = re.search(r"(bitwave_kernel<\d+>|wavefront_kernel|tbwave_kernel|walk_kernel)",
+            m = re.search(r"(bitwave_(?:warp_)?kernel<[^>]*>|wavefront_kernel|tbwave_kernel<\d+>|walk_kernel)",
                           e.get("name", ""))
             name = m.group(1) if m else "other kernels"
         else:
@@ -611,9 +671,12 @@ def profile_rounds(torch, asm, name, n):
         f"({wall_p:.3f} s on the host clock with the trace export): {view}")
 
 
-def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
-    """The K1 path, then the row-DP path on the same store; returns
-    (per-path counts, per-path kept inputs, row-DP engine, genome)."""
+K1_SLICE_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+
+
+def slice_engine(torch, dev, genome_len, max_round):
+    """The E. coli-scale read store and the K1 path's engine on it; returns
+    (genome, reads, patterns, cfg, engine)."""
     from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
     from pacbioassembly_tpu_torch.codec import dna
     from pacbioassembly_tpu_torch.config import AssemblyConfig
@@ -628,19 +691,33 @@ def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
     )
     t0 = time.perf_counter()
     k1 = BatchAssembler(cfg, reads, patterns, device=dev, screen_kernel="bitwave")
-    init_len = k1.ref.length()
     builder = k1._builder()
     if builder is None:
         raise AssertionError("read matrix does not fit the device matrix cap")
     torch.cuda.synchronize()
     log(f"[slice] set-up {time.perf_counter() - t0:.1f} s (device read matrix "
         f"{builder.reads_mat.numel() / 1e9:.2f} GB)")
+    return genome, reads, patterns, cfg, k1
 
+
+def phase_k1_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
+    """Only the K1 path's slice, as phase_slices drives it: its s/round,
+    phases and state, for comparing two trees of the port."""
+    _, _, _, _, k1 = slice_engine(torch, dev, genome_len, max_round)
+    run_slice(torch, k1, "bitwave slice", max_round, MainPathInputs(()), K1_SLICE_KERNELS)
+
+
+def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
+    """The K1 path, then the row-DP path on the same store; returns
+    (per-path counts, per-path kept inputs, row-DP engine, genome)."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+
+    genome, reads, patterns, cfg, k1 = slice_engine(torch, dev, genome_len, max_round)
+    init_len = k1.ref.length()
     kept = {"bitwave slice": MainPathInputs(), "rowdp slice": MainPathInputs(("rowdp",))}
     counts = {}
     counts["bitwave slice"] = run_slice(
-        torch, k1, "bitwave slice", max_round, kept["bitwave slice"],
-        ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"))
+        torch, k1, "bitwave slice", max_round, kept["bitwave slice"], K1_SLICE_KERNELS)
     if len(reads) - len(k1.surviving) <= 0 or k1.ref.length() <= init_len:
         raise AssertionError("the slice consumed no reads or the contig did not grow")
     share = kmer_share(k1.ref.text(), genome)
@@ -769,12 +846,22 @@ def kernel_line(res: Results, counts) -> list[dict]:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k1-slice", action="store_true",
+                    help="drive only the K1 path's E. coli slice (phase 3 without the "
+                         "profiled rounds), to compare two trees of the port")
+    ap.add_argument("--port", default=REPO,
+                    help="directory whose pacbioassembly_tpu_torch is driven (default: "
+                         "this checkout), e.g. an unpacked `git archive` of another commit")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.port))
     from pacbioassembly_tpu_torch import _build
 
     t_all = time.perf_counter()
@@ -782,7 +869,7 @@ def main() -> int:
     clock = float(nvidia_smi("clocks.max.sm").split()[0])
     name = torch.cuda.get_device_name(0)
     log(f"[device] {smi}, max SM clock {clock:.0f} MHz | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {name}")
+        f"{torch.version.cuda} | {name} | port {os.path.dirname(os.path.dirname(_build.__file__))}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.library()
@@ -790,21 +877,28 @@ def main() -> int:
     log(f"[device] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"({'built' if built is not None else 'cached'}: nvcc {built or 0:.1f} s)")
 
-    res = Results(clock)
-    phase_kernels(torch, dev, res)
-    counts, kept, rowdp, genome, _ = phase_slices(torch, dev)
-    phase_locate(torch, dev, rowdp, rowdp.ref.text().copy(), counts, kept)
-    seen = set()
-    for path, k in kept.items():
-        seen |= phase_main_path_kernels(torch, res, k, path)
-    if seen != set(_build.KERNELS):
-        raise AssertionError(f"kernels with no main-path inputs kept: {set(_build.KERNELS) - seen}")
-    del kept, rowdp
-    phase_two_devices(torch)
+    if args.k1_slice:
+        phase_k1_slice_only(torch, dev)
+    else:
+        for line in _build.ptxas_report:
+            log(f"[device] ptxas {line}")
+        res = Results(clock)
+        phase_kernels(torch, dev, res)
+        phase_kernel_shapes(torch, dev)
+        counts, kept, rowdp, genome, _ = phase_slices(torch, dev)
+        phase_locate(torch, dev, rowdp, rowdp.ref.text().copy(), counts, kept)
+        seen = set()
+        for path, k in kept.items():
+            seen |= phase_main_path_kernels(torch, res, k, path)
+        if seen != set(_build.KERNELS):
+            raise AssertionError(f"kernels with no main-path inputs kept: {set(_build.KERNELS) - seen}")
+        del kept, rowdp
+        phase_two_devices(torch)
+        kernels = kernel_line(res, counts)
 
-    kernels = kernel_line(res, counts)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    if not args.k1_slice:
+        print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
 """Build, load and call the hand-written CUDA kernels.
 
 The sources in `csrc/*.cu` have a plain C interface. At first use they are
-compiled with nvcc for Hopper (sm_90a) into one shared library under
-`build/` (git-ignored), named by a hash of the sources and flags so an
-edited source rebuilds, and loaded with ctypes. Building happens only when
-a CUDA tensor reaches a kernel wrapper; importing this module compiles
-nothing, so the CPU tests import every module without a toolkit.
+compiled with nvcc for Hopper (sm_90a), one nvcc per source, all started
+together, and linked into one shared library under `build/` (git-ignored),
+named by a hash of the sources and flags so an edited source rebuilds, and
+loaded with ctypes. Building happens only when a CUDA tensor reaches a
+kernel wrapper; importing this module compiles nothing, so the CPU tests
+import every module without a toolkit. Each build prints ptxas's report
+(`-Xptxas -v`: registers, shared memory, stack and spills per kernel) to
+stderr and keeps it in `ptxas_report`.
 
 Every C entry point returns `cudaGetLastError()` after its launch and
 `check()` raises on anything but 0: a refused launch never passes
@@ -23,8 +26,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
+import signal
 import subprocess
+import sys
 import threading
 import time
 
@@ -32,10 +38,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernels (wrapper-side, counted only where the kernel is launched): the
 # screening kernels K1 (bitwave) and K3 (rowdp) by launch kind, the parent
@@ -53,6 +57,7 @@ LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + PLAIN, 0)
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build (None = cached)
+ptxas_report: list[str] = []  # one line per kernel of this process's build
 
 
 def count(name: str) -> None:
@@ -84,7 +89,7 @@ def _nvcc() -> str:
 
 
 def _digest(srcs: list[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ARCH).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as fh:
@@ -92,19 +97,82 @@ def _digest(srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _ptxas_kernels(stderr: str) -> list[tuple[str, dict]]:
+    """(mangled name, properties) per kernel from ptxas's -v report:
+    registers, shared memory, stack frame and spill bytes."""
+    out: list[tuple[str, dict]] = []
+    pats = (("registers", r"Used (\d+) registers"), ("smem", r"(\d+) bytes smem"),
+            ("stack", r"(\d+) bytes stack frame"), ("spill_stores", r"(\d+) bytes spill stores"),
+            ("spill_loads", r"(\d+) bytes spill loads"))
+    for line in stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append((m.group(1), {}))
+        elif out:
+            for key, pat in pats:
+                m = re.search(pat, line)
+                if m:
+                    out[-1][1][key] = int(m.group(1))
+    return out
+
+
+def _short_names(names: list[str], nvcc: str) -> list[str]:
+    """Demangled kernel names without namespaces and arguments
+    (`tbwave_kernel<8>`), where the toolkit has cu++filt."""
+    tool = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return names
+    proc = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    full = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(full) != len(names):
+        return names
+    full = [re.sub(r"\((?:anonymous namespace|int|bool)\)", "", f) for f in full]
+    return [f.split("(")[0].split("::")[-1] for f in full]
+
+
 def _build(so_path: str, srcs: list[str]) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, so_path)
+    jobs = []
+    report = []
+    try:
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True,
+                                                    start_new_session=True)))
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            report += _ptxas_kernels(err)
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, so_path)
+    finally:
+        # a failed compile stops the others (nvcc and the tools it started);
+        # no object or partial library stays
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            proc.stdout.close()
+            proc.stderr.close()
+            if os.path.exists(obj):
+                os.remove(obj)
+        if os.path.exists(tmp):
+            os.remove(tmp)
     build_seconds = time.perf_counter() - t0
+    names = _short_names([name for name, _ in report], nvcc)
+    ptxas_report[:] = [f"{n}: {props}" for n, (_, props) in zip(names, report)]
+    for line in ptxas_report:
+        print(f"[ptxas] {line}", file=sys.stderr, flush=True)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -113,7 +181,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, I, P, I, P, P, I,      # a, LA, b, LB, la, lb, B
         P, P, P, I,               # early_thr, accept_min, band_tab, tab_len
         I, I, I, I,               # la_max, w_max, maxn, maxm
-        P, I, P, P,               # peq scratch, PW, out, stream
+        P, I, I, P, P,            # peq scratch (or null), PW, path, out, stream
     ]
     lib.pb_bitwave.restype = I
     lib.pb_wavefront.argtypes = [
@@ -125,8 +193,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pb_wavefront.restype = I
     lib.pb_tbwave.argtypes = [
         P, I, P, I,               # a, LA, b, LB
-        P, P, P, P, I,            # lb, md, len_a, len_b, B
-        I, I, I, P, P,            # w_max, S, NRB, out, stream
+        P, P, P, I,               # md, len_a, len_b, B
+        I, I, I, I, P, P,         # w_max, S, NRB, lanes, out, stream
     ]
     lib.pb_tbwave.restype = I
     lib.pb_walk.argtypes = [

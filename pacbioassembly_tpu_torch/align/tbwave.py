@@ -33,6 +33,8 @@ CHUNK = 128   # plane lane/row quantum (the JAX plane's shape)
 RB = 16       # DP rows per packed int32 (2-bit parents)
 TB_WALK = 32  # the walk emits in blocks of this many edits
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+TB_STATIC_SMEM = 512  # K2's static shared arrays (per-warp minima and first lanes)
+TB_MAX_LANES = 16 * 768  # K2: 16 lanes per thread, 768 threads
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,8 +165,10 @@ def batch_parents(
     )
 
 
-def _launch_parents(a, la, b, lb, *, la_max, w_max, ratio, rows_max):
-    """Check the inputs, launch csrc/tbwave.cu, count the launch."""
+def _launch_parents(a, la, b, lb, *, la_max, w_max, ratio, rows_max, lanes=0):
+    """Check the inputs, launch csrc/tbwave.cu, count the launch. `lanes`
+    (band lanes per thread: 4, 8 or 16; 0 = the kernel's choice) is
+    for measurements that compare the kernel's shapes."""
     B, LA = a.shape
     LB = b.shape[1]
     _build.check_tensor(a, torch.uint8, (B, LA), "a")
@@ -172,16 +176,22 @@ def _launch_parents(a, la, b, lb, *, la_max, w_max, ratio, rows_max):
     _build.check_tensor(la, torch.int32, (B,), "la", a.device)
     _build.check_tensor(lb, torch.int32, (B,), "lb", a.device)
     S, NRB = plane_dims(la_max, w_max, rows_max)
-    if 16 * S > SMEM_LIMIT:
-        raise ValueError(f"band of {S} lanes needs {16 * S} B of shared memory (> {SMEM_LIMIT})")
+    # shared memory: the parents' staging row (S int32) and the b codes
+    smem = 4 * S + _round_up(LB, 16) + TB_STATIC_SMEM
+    if S > TB_MAX_LANES or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"band of {S} lanes with b rows of {LB} needs {smem} B of shared memory "
+            f"(limit {SMEM_LIMIT}) and at most {TB_MAX_LANES} lanes"
+        )
     md, len_a, len_b = _geometry(la, lb, la_max, LA, LB, ratio)
-    a, b, lb = a.contiguous(), b.contiguous(), lb.contiguous()
+    a, b = a.contiguous(), b.contiguous()
     md, len_a, len_b = md.contiguous(), len_a.contiguous(), len_b.contiguous()
-    out = torch.zeros((B, NRB, S), dtype=torch.int32, device=a.device)
+    # the kernel writes every word of the plane, zeros included
+    out = torch.empty((B, NRB, S), dtype=torch.int32, device=a.device)
     lib = _build.library()
     err = lib.pb_tbwave(
-        a.data_ptr(), LA, b.data_ptr(), LB, lb.data_ptr(), md.data_ptr(),
-        len_a.data_ptr(), len_b.data_ptr(), B, w_max, S, NRB, out.data_ptr(),
+        a.data_ptr(), LA, b.data_ptr(), LB, md.data_ptr(),
+        len_a.data_ptr(), len_b.data_ptr(), B, w_max, S, NRB, lanes, out.data_ptr(),
         _build.stream_of(a),
     )
     _build.check(lib, err, "tbwave")

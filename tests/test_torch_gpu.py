@@ -162,6 +162,153 @@ def test_parent_and_walk_kernels_equal_plain(cuda, LB, rows_max, E):
     assert int(sc.accept.sum()) > 0
 
 
+def _md_of(n, ratio=0.3):
+    return 1 + int(np.floor(n * ratio))
+
+
+def _length_for_md(md, ratio=0.3):
+    """The shortest length whose band half-width is md."""
+    n = int((md - 1) / ratio)
+    while _md_of(n, ratio) < md:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("B", [1, 33])
+def test_parent_kernel_edges_equal_plain(cuda, B):
+    """K2 at its edges, every lanes-per-thread shape against the plain
+    plane: a pair whose md is the launch's W, len_b < md (an empty b),
+    len_a past rows_max, all-padding pairs (length 0), the engine's pad
+    rows (la = lb = 1); B=1 and B=33 pairs a launch."""
+    from pacbioassembly_tpu_torch.align.tbwave import _launch_parents
+
+    rng = np.random.default_rng(B)
+    W = 150
+    n = _length_for_md(W)
+    src = rng.integers(0, 4, n + 400).astype(np.uint8)
+    seg = src[:n].copy()
+    sub = rng.random(n) < 0.05
+    seg[sub] = (seg[sub] + 1) % 4
+    edges = [
+        (src[: n + 40], seg),                        # md = W, swapped (len_a > len_b)
+        (src[:n], src[: n + 30]),                    # md = W, len_b > len_a
+        (src[:200], np.zeros(0, np.uint8)),          # len_b = 0 < md = 1
+        (np.zeros(0, np.uint8), np.zeros(0, np.uint8)),
+        (src[:1], src[:1]),
+    ]
+    cases = (edges * B)[:B] if B < len(edges) else edges + overlap_cases(
+        rng, B - len(edges), src_len=n + 100, seg_lo=50, seg_hi=n, err=0.1, a_lo=20, a_hi=n + 60)
+    LA, LB = n + 60, n + 40
+    A, las, Bm, lbs = pack(cases, LA, LB)
+    args = batch_tensors(A, las, Bm, lbs, device=cuda)
+    for rows_max in (None, 256):  # 256 < len_a: rows cut at the plane
+        kw = dict(la_max=LA, w_max=W, ratio=0.3, rows_max=rows_max)
+        want = batch_parents_plain(*args, **kw)
+        before = _build.LAUNCHES["tbwave"]
+        got = [batch_parents(*args, **kw)]
+        got += [_launch_parents(*args, lanes=lanes, **kw) for lanes in (4, 8, 16)]
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["tbwave"] == before + 4
+        assert B == 1 or int(want[1].max()) == W
+        for g in got:
+            assert all(torch.equal(x, y) for x, y in zip(g, want))
+        assert bool((want[0] != 0).any())
+
+
+def _k1_width_cases(rng, nw):
+    """Pairs for a launch of exactly nw words per stripe (w_max = 32 nw - 1,
+    capped by maxm - 1): two at the launch's widest band (one swapped), an
+    unrelated pair that fails early, a far row with two equal minima, n = 1."""
+    from pacbioassembly_tpu_torch.config import Constants
+
+    w_max = min(32 * nw - 1, Constants.ALIGNER_MAXM - 1)
+    n = _length_for_md(w_max)
+    src = rng.integers(0, 4, n + 200).astype(np.uint8)
+    seg = src[:n].copy()
+    sub = rng.random(n) < 0.02
+    seg[sub] = (seg[sub] + 1) % 4
+    x = rng.integers(0, 4, 120).astype(np.uint8)
+    cases = [
+        (src[: n + 60], seg),                                   # swapped: len_a > len_b
+        (seg, src[: n + 60]),                                   # not swapped
+        (rng.integers(0, 4, 400).astype(np.uint8), rng.integers(0, 4, 400).astype(np.uint8)),
+        (np.append(x, 1).astype(np.uint8), np.append(x, [2, 1]).astype(np.uint8)),  # D(n, n) = D(n, n+1)
+        (x[:1], x[:3]),                                         # n = 1
+    ]
+    return cases, w_max, n + 60, n + 60
+
+
+@pytest.mark.parametrize("nw", [2, 3, 32, 33, 64, 65, 96, 97, 188])
+def test_bitwave_paths_at_each_words_per_lane_edge(cuda, nw):
+    """K1's warp path (and its thread path at 2 words, the one width it is
+    built for), and the wrapper's own choice, against the plain row DP at
+    stripe widths on each side of every words-per-lane step of the warp
+    path (1..6 words a lane)."""
+    from pacbioassembly_tpu_torch.align import bitwave
+
+    rng = np.random.default_rng(nw)
+    cases, W, LA, LB = _k1_width_cases(rng, nw)
+    A, las, Bm, lbs = pack(cases, LA, LB)
+    args = batch_tensors(A, las, Bm, lbs, device=cuda)
+    kw = dict(la_max=LA, w_max=W, ratio=0.3)
+    assert bitwave.stripe_words(W, bitwave.Constants.ALIGNER_MAXM) == nw
+    p = batch_score(*args, **kw)
+    lim = dict(maxn=bitwave.Constants.ALIGNER_MAXN, maxm=bitwave.Constants.ALIGNER_MAXM)
+    paths = ("thread", "warp") if nw < bitwave.WARP_MIN_WORDS else ("warp",)
+    runs = [batch_score_bitwave(*args, **kw)] + [
+        bitwave._launch(*args, kind="fullscreen", path=path, **kw, **lim) for path in paths
+    ]
+    torch.cuda.synchronize()
+    for k in runs:
+        for f in range(6):
+            assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+    assert p.accept.tolist()[:4] == [True, True, False, True]
+    assert int(p.diag_cost[0]) == -1 and int(p.diag_cost[1]) >= 0  # swapped, then not
+    assert int(p.dp_rows[2]) <= 20                                  # failed early
+    assert int(p.matlen_b[3]) == len(cases[3][0])                    # the first of two minima
+
+
+def test_bitwave_warp_path_with_the_peq_in_global_memory(cuda):
+    """Rows wider than a warp's shared PEQ can hold (4 x PW words, PW from
+    the widest row): the warp path builds it in the global scratch."""
+    from pacbioassembly_tpu_torch.align import bitwave
+
+    (A, las, Bm, lbs), LA, _, W = _cases(1024, 1024, 0.3, n=12)
+    LB = 470_000  # 32 * PW bytes > SMEM_LIMIT
+    assert 32 * ((LB + 63) // 64 + 1) > bitwave.SMEM_LIMIT
+    wide = np.zeros((len(las), LB), np.uint8)
+    wide[:, : Bm.shape[1]] = Bm
+    args = batch_tensors(A, las, wide, lbs, device=cuda)
+    kw = dict(la_max=LA, w_max=W, ratio=0.3)
+    assert bitwave.stripe_words(W, bitwave.Constants.ALIGNER_MAXM) >= bitwave.WARP_MIN_WORDS
+    k = batch_score_bitwave(*args, **kw)
+    p = batch_score(*args, **kw)
+    torch.cuda.synchronize()
+    for f in range(6):
+        assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+    assert 0 < int(p.accept.sum()) < len(las)
+
+
+def test_bitwave_fails_at_row_eleven(cuda):
+    """Pairs whose first failure is at row 11, the first row that can fail,
+    through both paths."""
+    from pacbioassembly_tpu_torch.align import bitwave
+
+    rng = np.random.default_rng(7)
+    cases = [(rng.integers(0, 4, 200).astype(np.uint8), rng.integers(0, 4, 200).astype(np.uint8))
+             for _ in range(64)]
+    A, las, Bm, lbs = pack(cases, 200, 200)
+    args = batch_tensors(A, las, Bm, lbs, device=cuda)
+    for W in (63, 250):  # md 61: 2 words (thread path) and 8 words (warp path)
+        kw = dict(la_max=200, w_max=W, ratio=0.3)
+        p = batch_score(*args, **kw)
+        k = batch_score_bitwave(*args, **kw)
+        torch.cuda.synchronize()
+        for f in range(6):
+            assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+        assert (p.dp_rows == 11).any() and not p.accept.any()
+
+
 def test_elect_on_card_equals_cpu(cuda):
     rng = np.random.default_rng(4)
     N, E, L = 16, 40, 300

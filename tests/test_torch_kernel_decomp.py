@@ -1,0 +1,362 @@
+"""Numpy models of how the CUDA kernels K2 (csrc/tbwave.cu) and K1's warp
+path (csrc/bitwave.cu, bitwave_warp_kernel) split their work across lanes,
+threads and warps, held against the port's plain versions, which the other
+tests hold equal to the JAX package. They rehearse the kernels' logic where
+no card exists; the kernels themselves are held against the same plain
+versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
+
+  (a) K2: each thread owns L consecutive band lanes; the in-row INSERT chain
+      is a prefix minimum of u = D - k, serial over a thread's lanes, a
+      shuffle scan over 32 threads and the warps' totals, with non-live
+      cells forced to INF; the parents come from equalities of the running
+      minimum. The model gives the plain parent plane bit for bit.
+  (b) K1: the ballot carry-lookahead across 32 lanes of words gives the
+      ripple's sum and carry-out.
+  (c) K1: the word-split Myers column step with that carry, the shuffled
+      shifts and dh/dv, and the warp's far-row argmin give
+      align/scan.py::batch_score's fields.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pacbioassembly_tpu_torch.align import scan
+from pacbioassembly_tpu_torch.align.tbwave import _geometry, batch_parents_plain, plane_dims
+from pacbioassembly_tpu_torch.align.types import DELETE, INSERT, MATCH
+from pacbioassembly_tpu_torch.config import Constants
+
+from test_scan import make_cases, pack
+from test_torch_tbwave import _multi_block_cases
+from torch_parity import batch_tensors, overlap_cases, random_cases
+
+torch.set_num_threads(1)
+
+INF = scan.INF
+SCAN_ID = 1 << 30  # the kernels' identity of the prefix minimum
+ALL = np.uint64(0xFFFFFFFFFFFFFFFF)
+U64 = np.uint64
+
+
+# ------------------------------------------------------------------ (a) K2
+
+
+def _warp_scan_min(x):
+    """Inclusive prefix minimum over each warp of 32 threads, as five
+    __shfl_up_sync steps: x is (threads,), a multiple of 32."""
+    x = x.reshape(-1, 32).copy()
+    lane = np.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        y = np.concatenate([x[:, :off], x[:, :-off]], axis=1)  # shfl_up: lanes < off keep theirs
+        x = np.where(lane >= off, np.minimum(x, y), x)
+    return x
+
+
+def parents_model(A, las, Bm, lbs, *, la_max, w_max, ratio, rows_max, L):
+    """The parent plane as csrc/tbwave.cu computes it, one pair at a time."""
+    B, LA = A.shape
+    LB = Bm.shape[1]
+    W = w_max
+    S, NRB = plane_dims(la_max, w_max, rows_max)
+    md_t, la_t, lb_t = _geometry(*(torch.from_numpy(x) for x in (las, lbs)), la_max, LA, LB, ratio)
+    out = np.full((B, NRB, S), -1, np.int64)  # every word must be written (int32 bits)
+    T = -(-S // (32 * L)) * 32  # threads: ceil(S / L), whole warps
+    for q in range(B):
+        md, lena, lenb = int(md_t[q]), int(la_t[q]), int(lb_t[q])
+        lo, hi = max(0, W - md), min(S - 1, W + md)
+        k = lo + np.arange(T * L).reshape(T, L)       # thread t owns row t
+        warp = np.arange(T) // 32
+        idle = lo + np.arange(T // 32) * 32 * L > hi  # warps past the band
+        stage = np.zeros(S, np.int64)
+        j0 = k - W
+        pr = np.where((k <= hi) & (j0 >= 0) & (j0 <= min(lenb, md)), j0, INF)
+        pw = np.zeros((T, L), np.int64)
+        first = np.full(T // 32 + 1, INF)
+        first[: T // 32][~idle] = pr[::32, 0][~idle]
+        nrows = min(lena, NRB * 16)
+        for i in range(1, nrows + 1):
+            r = (i - 1) & 15
+            vlo, vhi = max(lo, W + 1 - i), min(hi, W + lenb - i)
+            kbord = W - i if i <= md else -1
+            ai = int(A[q, i - 1]) if i - 1 < LA else 0
+            # UP source of each thread's last lane: shfl_down, or the next warp's first lane
+            nxt = np.concatenate([pr[1:, 0], [INF]])
+            nxt[31::32] = first[warp[31::32] + 1]
+            valid = (k >= vlo) & (k <= vhi)
+            src = np.clip(k + i - W - 1, 0, LB - 1)
+            diag = np.where(valid, pr + (Bm[q, src].astype(np.int64) != ai), INF)
+            up = np.where(valid, np.concatenate([pr[:, 1:], nxt[:, None]], axis=1) + 1, INF)
+            D = np.minimum(diag, up)
+            D = np.where(k == kbord, i, D)
+            deq = valid & (diag == D)
+            u = D - k
+            x = _warp_scan_min(u.min(axis=1))
+            excl = np.concatenate([np.full((x.shape[0], 1), SCAN_ID), x[:, :-1]], axis=1).ravel()
+            tot = x[:, 31]
+            carry = np.array([min([SCAN_ID, *tot[:w]]) for w in range(T // 32)])
+            run = np.minimum(excl, carry[warp])
+            kl = k[:, 0] - 1
+            left_live = (kl >= lo) & (((kl >= vlo) & (kl <= vhi)) | (kl == kbord))
+            left_run = run.copy()
+            for l in range(L):
+                run = np.minimum(run, u[:, l])
+                border = k[:, l] == kbord
+                live = valid[:, l] | border
+                par = np.full(T, DELETE)
+                par = np.where(left_live & (run == left_run), INSERT, par)
+                par = np.where(deq[:, l] & (run == u[:, l]), MATCH, par)
+                par = np.where(border, DELETE, par)
+                par = np.where(live, par, 0)
+                pr[:, l] = np.where(live, k[:, l] + run, INF)
+                pw[:, l] |= par << (2 * r)
+                left_live, left_run = live, run.copy()
+            act = np.repeat(~idle, 32)
+            first[: T // 32][~idle] = pr[::32, 0][~idle]
+            if r == 15 or i == nrows:
+                own = (k <= hi) & act[:, None]
+                stage[k[own]] = pw[own]
+                pw[:] = 0
+                out[q, (i - 1) >> 4] = stage
+        out[q, (nrows + 15) >> 4 :] = 0
+    return out
+
+
+def _k2_cases():
+    """(cases, LA, LB, rows_max): tests/test_torch_tbwave.py's pairs, its
+    multi-block pairs, and the edges: a long identical pair (its md is the
+    launch's band), len_b < md (an empty b), all-padding pairs (length 0)
+    and the engine's pad rows (la = lb = 1); and rows cut at the plane."""
+    rng = np.random.default_rng(33)
+    a = rng.integers(0, 4, 80).astype(np.uint8)
+    edges = [
+        (a, a.copy()),
+        (a[:50], np.zeros(0, np.uint8)),                  # len_b = 0 < md = 1
+        (np.zeros(0, np.uint8), np.zeros(0, np.uint8)),  # padding
+        (a[:1], a[:1]),
+    ]
+    return [
+        (make_cases(rng, 24, max_len=60) + edges, 128, 80, None),
+        (_multi_block_cases() + edges, 320, 320, None),
+        (_multi_block_cases() + edges, 320, 320, 128),
+    ]
+
+
+def _full_band(las, lbs, ratio):
+    """w_max = the largest md of the pairs: the launch's band is reached."""
+    return int(max(1 + np.floor(min(x, y) * ratio) for x, y in zip(las, lbs)))
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16])  # the kernel's 4, 8, 16 and two degenerate
+@pytest.mark.parametrize("case", range(3), ids=["tbwave-fixture", "multi-block", "rows-max"])
+def test_k2_lane_warp_block_prefix_gives_the_plain_plane(case, L):
+    cases, LA, LB, rows_max = _k2_cases()[case]
+    A, las, Bm, lbs = pack(cases, LA, LB)
+    W = _full_band(las, lbs, 0.3)
+    kw = dict(la_max=LA, w_max=W, ratio=0.3, rows_max=rows_max)
+    plain, md, _ = batch_parents_plain(*batch_tensors(A, las, Bm, lbs), **kw)
+    assert int(md.max()) == W  # the launch's full band is reached
+    model = parents_model(A, las, Bm, lbs, L=L, **kw)
+    np.testing.assert_array_equal(model.astype(np.uint32).view(np.int32), plain.numpy())
+    assert (plain.numpy() != 0).any()
+
+
+# ------------------------------------------------------------- (b) K1 carry
+
+
+def lookahead_carries(gen, prop):
+    """Carry into each of 32 lanes from their generate / propagate bits, as
+    the kernel forms it: bit x of (g + (g | p)) ^ p over two ballots."""
+    g = sum(int(v) << x for x, v in enumerate(gen))
+    p = sum(int(v) << x for x, v in enumerate(prop))
+    t = ((g + (g | p)) & 0xFFFFFFFF) ^ p
+    return np.array([(t >> x) & 1 for x in range(32)], np.uint64), (g + (g | p)) >> 32
+
+
+def lookahead_add(x, y):
+    """(32, WPL) words + words with the kernel's carry-lookahead; returns
+    (sum words, carry out of the last word)."""
+    with np.errstate(over="ignore"):
+        s1 = x + y
+    gen, prop = s1 < x, s1 == ALL
+    wpl = x.shape[1]
+    lane_gen = np.zeros(32, bool)
+    for u in range(wpl):
+        lane_gen = gen[:, u] | (prop[:, u] & lane_gen)
+    cin, cout = lookahead_carries(lane_gen, prop.all(axis=1))
+    out = np.zeros_like(x)
+    c = cin
+    for u in range(wpl):
+        with np.errstate(over="ignore"):
+            out[:, u] = s1[:, u] + c
+        c = (gen[:, u] | (prop[:, u] & (c == 1))).astype(np.uint64)
+    return out, int(c[31])
+
+
+def _as_int(words):
+    return sum(int(w) << (64 * i) for i, w in enumerate(words.ravel()))
+
+
+@pytest.mark.parametrize("wpl", [1, 2, 3, 6])
+def test_k1_ballot_lookahead_equals_ripple(wpl):
+    rng = np.random.default_rng(wpl)
+    nbits = 64 * 32 * wpl
+
+    def words(v):
+        return np.array([(v >> (64 * i)) & (2**64 - 1) for i in range(32 * wpl)],
+                        np.uint64).reshape(32, wpl)
+
+    trials = [rng.integers(0, 2**63, (2, 32, wpl), dtype=np.uint64) * U64(2)
+              + rng.integers(0, 2, (2, 32, wpl), dtype=np.uint64) for _ in range(20)]
+    trials = [(t[0], t[1]) for t in trials]
+    ones = 2**nbits - 1
+    for lo, hi in ((0, nbits), (64, 64 * 20), (60, 64 * 7 + 3), (64 * wpl, 64 * wpl * 31)):
+        run = ones >> (nbits - (hi - lo)) << lo            # a run of ones
+        trials.append((words(run), words(1 << lo)))        # + 1 at its bottom: carries through it
+        trials.append((words(run), words(run)))
+        trials.append((words(ones), words(1)))             # carry out of the top
+    for x, y in trials:
+        got, cout = lookahead_add(x, y)
+        want = _as_int(x) + _as_int(y)
+        assert _as_int(got) == want & ones
+        assert cout == want >> nbits
+
+
+# ---------------------------------------------------------- (c) K1 warp path
+
+
+def k1_warp_model(A, las, Bm, lbs, *, la_max, w_max, ratio, wpl,
+                  maxn=Constants.ALIGNER_MAXN, maxm=Constants.ALIGNER_MAXM):
+    """BatchScores fields as bitwave_warp_kernel computes them: 32 lanes of
+    wpl words each, one pair at a time."""
+    B, LA = A.shape
+    LB = Bm.shape[1]
+    tab_len = max(la_max, LB, LA) + 1
+    early_thr, accept_min, band_tab = scan._threshold_tables(ratio, tab_len)
+    PW = (max(LA, LB) + 63) // 64 + 1
+    lane = np.arange(32)
+    w = lane[:, None] * wpl + np.arange(wpl)[None, :]
+    rows = []
+    for q in range(B):
+        la, lb = int(las[q]), int(lbs[q])
+        cond = lb >= la
+        md = int(band_tab[min(max(la if cond else lb, 0), tab_len)])
+        len_a = la if cond else min(la, lb + md)
+        len_b = min(lb, la + md) if cond else lb
+        res = [0, INF, 0, 0, -1, 0]
+        if not (len_a < maxn + maxm and md < maxm and md <= w_max and len_a <= la_max):
+            rows.append(res)
+            continue
+        swap = len_a > len_b
+        n, m = min(len_a, len_b), max(len_a, len_b)
+        ka, kb = (Bm[q], A[q]) if swap else (A[q], Bm[q])
+        kb_codes = kb[np.minimum(np.arange(64 * PW), len(kb) - 1)] & 3
+        bits = (np.arange(64 * PW) < m)[None, :] & (kb_codes[None, :] == np.arange(4)[:, None])
+        peq = (bits.reshape(4, PW, 64).astype(np.uint64) << np.arange(64, dtype=np.uint64)).sum(
+            axis=2, dtype=np.uint64)
+        S = 2 * md + 1
+        nw, topw = (S + 63) >> 6, (S - 1) >> 6
+        topbit = U64(1) << U64((S - 1) & 63)
+        lastmask = ALL if S & 63 == 0 else (U64(1) << U64(S & 63)) - U64(1)
+        cw_h, cb_h, cw_v, cb_v = (md - 1) >> 6, (md - 1) & 63, md >> 6, md & 63
+        mask = np.where(w < nw - 1, ALL, np.where(w == nw - 1, lastmask, U64(0)))
+        VP, VN = mask.copy(), np.zeros_like(mask)
+        Sc, fail_i, pending = 0, 0, 0
+        for i in range(1, n + 1):
+            P = peq[int(ka[min(i - 1, len(ka) - 1)]) & 3]
+            t0, p0 = i - md - 1, md - i
+            idx = (t0 >> 6) + lane[:, None] * wpl + np.arange(wpl + 1)[None, :]
+            Pw = np.where((idx >= 0) & (idx < PW), P[np.clip(idx, 0, PW - 1)], U64(0))
+            rb = t0 & 63
+            # bit 0 of the next lane's first words (shfl_down; lane 31 reads 0)
+            nb_vp = np.append(VP[1:, 0] & U64(1), U64(0))
+            nb_vn = np.append(VN[1:, 0] & U64(1), U64(0))
+            vp_next = np.concatenate([VP[:, 1:], nb_vp[:, None]], axis=1)
+            vn_next = np.concatenate([VN[:, 1:], nb_vn[:, None]], axis=1)
+            VPp = ((VP >> U64(1)) | (vp_next << U64(63)) | np.where(w == topw, topbit, U64(0))) & mask
+            VNp = ((VN >> U64(1)) | (vn_next << U64(63))) & mask
+            if rb == 0:
+                PM = Pw[:, :wpl] & mask
+            else:
+                PM = ((Pw[:, :wpl] >> U64(rb)) | (Pw[:, 1:] << U64(64 - rb))) & mask
+            total, _ = lookahead_add(PM & VPp, VPp)
+            Xh = ((total & mask) ^ VPp) | PM
+            Ph = (VNp | ~(Xh | VPp)) & mask
+            Mh = VPp & Xh
+            if p0 >= 0:
+                at = w == (p0 >> 6)
+                bb = U64(1) << U64(p0 & 63)
+                Ph = np.where(at, Ph | bb, Ph)
+                Mh = np.where(at, Mh & ~bb, Mh)
+            # top bits of the previous lane's last words (shfl_up; lane 0 reads 0)
+            ph_in = np.concatenate([[[U64(0)]], (Ph[:-1, -1:] >> U64(63))], axis=0)
+            mh_in = np.concatenate([[[U64(0)]], (Mh[:-1, -1:] >> U64(63))], axis=0)
+            ph_in = np.concatenate([ph_in, Ph[:, :-1] >> U64(63)], axis=1)
+            mh_in = np.concatenate([mh_in, Mh[:, :-1] >> U64(63)], axis=1)
+            Phs = ((Ph << U64(1)) | ph_in) & mask
+            Mhs = ((Mh << U64(1)) | mh_in) & mask
+            Xv = PM | VNp
+            VP, VN = (Mhs | ~(Xv | Phs)) & mask, Phs & Xv
+            lh, uh, lv, uv = cw_h // wpl, cw_h % wpl, cw_v // wpl, cw_v % wpl
+            dh = int((Ph[lh, uh] >> U64(cb_h)) & U64(1)) - int((Mh[lh, uh] >> U64(cb_h)) & U64(1))
+            dv = int((VP[lv, uv] >> U64(cb_v)) & U64(1)) - int((VN[lv, uv] >> U64(cb_v)) & U64(1))
+            # column i - 1's test runs after column i's step, as in the kernel
+            Sc += pending
+            if i > 11 and Sc > early_thr[i - 1]:
+                fail_i = i - 1
+                break
+            pending = dh + dv
+        if not fail_i:  # the last column's test
+            Sc += pending
+            if n > 10 and Sc > early_thr[n]:
+                fail_i = n
+        if not fail_i and n >= 1:
+            # per-lane popcounts over bits md+1 .. md+m-n, a warp prefix sum,
+            # each lane's own bits, then the argmin with ties to the lowest j
+            b_lo, b_hi = md + 1, md + m - n
+            pos = w[:, :, None] * 64 + np.arange(64)[None, None, :]
+            inr = (pos >= b_lo) & (pos <= b_hi)
+            d = (((VP[:, :, None] >> np.arange(64, dtype=np.uint64)) & U64(1)).astype(np.int64)
+                 - ((VN[:, :, None] >> np.arange(64, dtype=np.uint64)) & U64(1)).astype(np.int64))
+            d = np.where(inr, d, 0).reshape(32, -1)
+            base = Sc + np.concatenate([[0], np.cumsum(d.sum(axis=1))[:-1]])
+            best = (Sc << 32) | n
+            for x in range(32):
+                vals = base[x] + np.cumsum(d[x])
+                for t in np.nonzero(inr.reshape(32, -1)[x])[0]:
+                    best = min(best, (int(vals[t]) << 32) | (n + int(pos.reshape(32, -1)[x, t]) - md))
+            cost, j = best >> 32, best & 0xFFFFFFFF
+            ma, mb = (j, n) if swap else (n, j)
+            if mb >= accept_min[min(max(len_b, 0), tab_len)] and cost < INF:
+                res[:5] = [1, cost, ma, mb, -1 if swap else Sc]
+        res[5] = fail_i if fail_i else len_a
+        rows.append(res)
+    return np.array(rows, np.int64).T
+
+
+def _k1_cases():
+    rng = np.random.default_rng(5)
+    cases = overlap_cases(rng, 14, src_len=700, seg_lo=150, seg_hi=420, err=0.08, a_lo=100, a_hi=600)
+    cases += random_cases(rng, 8, a_hi=500, b_hi=420)
+    x = rng.integers(0, 4, 400).astype(np.uint8)
+    cases += [
+        (x[:300], x[:360]),                        # n = 300 columns, no swap
+        (x[:380], x[:250]),                        # swapped: len_a > len_b
+        (x[:1], x[:1]),                            # n = 1
+        (x[:1], rng.integers(0, 4, 3).astype(np.uint8)),
+        (np.zeros(0, np.uint8), x[:5]),           # empty side
+    ]
+    return cases
+
+
+@pytest.mark.parametrize("wpl", [1, 2, 3])
+def test_k1_word_split_column_step_gives_plain_scores(wpl):
+    LA, LB, W, ratio = 601, 420, 127, 0.3
+    A, las, Bm, lbs = pack(_k1_cases(), LA, LB)
+    plain = scan.batch_score(*batch_tensors(A, las, Bm, lbs), la_max=LA, w_max=W, ratio=ratio)
+    model = k1_warp_model(A, las, Bm, lbs, la_max=LA, w_max=W, ratio=ratio, wpl=wpl)
+    for f, name in enumerate(plain._fields):
+        np.testing.assert_array_equal(model[f], plain[f].numpy().astype(np.int64), name)
+    acc = plain.accept.numpy()
+    assert 5 <= acc.sum() < len(acc)
+    assert (acc & (plain.diag_cost.numpy() == -1)).any()  # an accepted swapped pair
+    assert ((~acc) & (plain.dp_rows.numpy() > 10) & (plain.dp_rows.numpy() < 200)).any()
