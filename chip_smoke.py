@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch port (pacbioassembly_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels [--port DIR]    # only the kernels against their plain versions (2)
     python3 chip_smoke.py --k1-slice [--port DIR]   # only the K1 slice of 3, of DIR's port
+    python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
@@ -17,8 +19,9 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      field; K2 (tbwave.cu) and W (walk.cu) at Bp=32 in the same three
      buckets; a 256-pair sample against the native host aligner; then each
      kernel's launch shapes: K1's thread and warp paths at the prefilter's
-     2 words a stripe and K2 at each lanes-per-thread shape, each equal to
-     the wrapper's choice;
+     2 words a stripe, K2 at each lanes-per-thread shape, and K3 at each
+     lanes-per-thread shape on both sides of its warp/block cutover at the
+     paths' geometries, each equal to the wrapper's choice;
   3. the main path with K1 at E. coli scale: 4.6 Mb at 30x, reads of mean
      2,500, 3% uniform error, seed 11; BatchAssembler on cuda, rng_seed 7,
      round-robin over tests/data/seeds.txt, 60 rounds (more if no round has
@@ -36,7 +39,9 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      through K3 and through K1: equal TSVs, the first 100 reads equal the
      sequential host loop, residual error and wall time of each;
   6. every kernel variant the paths of 3-5 launched, held against its plain
-     version on the inputs of its first launches, at the paths' own shapes;
+     version on the inputs of its first launches, at the paths' own shapes,
+     and K3's variants at each of its launch shapes equal to the wrapper's
+     choice on those inputs;
   7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
      contig bytes, votes and surviving reads.
 
@@ -189,8 +194,36 @@ def bound_work(torch, kernel, args, kw, out) -> tuple[float, float]:
     else:  # walk: ~20 operations per edit
         ops_t, vals_t, nedit = out
         nbytes += ops_t.numel() + vals_t.numel() + nedit.numel() * 4
+        nbytes += 4 * (walk_words(torch, args, kw, out) - args[0].numel())
         ops = float(nedit.double().sum() * 20)
     return nbytes, ops
+
+
+def walk_words(torch, args, kw, out) -> int:
+    """The parent words a walk must read: the distinct (row block, lane)
+    words under the cells it stepped back from, rebuilt from its edit
+    stream (row 0 is analytic and reads none)."""
+    P, matlen_a, matlen_b = args[0], args[4], args[5]
+    ops_t, _, nedit = out
+    B, NRB, S = P.shape
+    E = ops_t.shape[1]
+    op = ops_t.long()
+    live = torch.arange(E, device=op.device)[None, :] < nedit[:, None].long()
+    # the cell before edit e of the forward stream, counted back from the goal
+    di = torch.flip(torch.cumsum(torch.flip((live & (op != 2)).long(), [1]), 1), [1])
+    dj = torch.flip(torch.cumsum(torch.flip((live & (op != 3)).long(), [1]), 1), [1])
+    i = matlen_a.long()[:, None] - di + (live & (op != 2)).long()
+    j = matlen_b.long()[:, None] - dj + (live & (op != 3)).long()
+    # and the cell the walk stopped on, where a parent of 0 ended it (not
+    # the 32-edit block stop at E)
+    i = torch.cat([i, (matlen_a.long() - di[:, 0])[:, None]], 1)
+    j = torch.cat([j, (matlen_b.long() - dj[:, 0])[:, None]], 1)
+    stop = args[6].bool() & (nedit < E // 32 * 32)
+    live = torch.cat([live, stop[:, None]], 1) & (i > 0)
+    rb = torch.clamp((i - 1) >> 4, max=NRB - 1)
+    k = torch.clamp(j - i + kw["w_max"], 0, S - 1)
+    q = torch.arange(B, device=op.device)[:, None]
+    return int(torch.unique(((q * NRB + rb) * S + k)[live]).numel())
 
 
 class Results:
@@ -365,8 +398,9 @@ def phase_kernels(torch, dev, res):
 def phase_kernel_shapes(torch, dev):
     """Each kernel's launch shapes on fresh synthetic batches, every output
     equal to the wrapper's own choice's: K1's thread and warp paths at the
-    prefilter's 2 words a stripe, the only width both are built for, and
-    K2 at each lanes-per-thread shape its plane admits."""
+    prefilter's 2 words a stripe, the only width both are built for, K2 at
+    each lanes-per-thread shape its plane admits, and K3 at each shape on
+    both paths where its band fits."""
     from pacbioassembly_tpu_torch.align import bitwave, tbwave
     from pacbioassembly_tpu_torch.align.screen import size_bucket
     from pacbioassembly_tpu_torch.config import Constants
@@ -398,6 +432,20 @@ def phase_kernel_shapes(torch, dev):
             ms[path] = fastest(fn, batches)
         log(f"[kernels:shapes] K1 B={B} W={W} ({words} words): thread {ms['thread']:.3f} ms, "
             f"warp {ms['warp']:.3f} ms; the wrapper takes the thread path")
+        if B == 32768:
+            prefilter_like = (batches, LA, W, ratio)
+
+    # K3 at each (path, lanes) its band admits: the prefilter's geometry (the
+    # batches above, 127 band lanes), locate's 1024, 2048 and 4096 buckets
+    # (R=0.15) and the full screen's 4096 and 8192 buckets at the main path's B
+    k3_geoms = [prefilter_like]
+    for B, cap, ratio in ((2048, 1024, 0.15), (2048, 2048, 0.15), (2048, 4096, 0.15),
+                          (256, 4096, 0.3), (256, 8192, 0.3)):
+        LB, LA, W = size_bucket(cap, ratio)
+        k3_geoms.append(([up(make_pairs(rng, B, LB, LA)) for _ in range(2)], LA, W, ratio))
+    for batches, LA, W, ratio in k3_geoms:
+        log(f"[kernels:shapes] K3 B={len(batches[0][0])} LA={LA} W={W} R={ratio} (band {2 * W + 1}): "
+            + k3_shapes(torch, batches, dict(la_max=LA, w_max=W, ratio=ratio)))
 
     for cap, rows in ((4096, 3584), (8192, 7168)):
         LB, LA, W = size_bucket(cap, 0.3)
@@ -415,6 +463,31 @@ def phase_kernel_shapes(torch, dev):
                 raise AssertionError(f"K2 at {lanes} lanes a thread != the wrapper's choice")
             parts.append(f"{lanes} lanes {fastest(fn, batches):.3f} ms")
         log(f"[kernels:shapes] K2 Bp=32 LA={LA} W={W} rows={rows} (S={S}): " + ", ".join(parts))
+
+
+def k3_shapes(torch, batches, kw, kind="fullscreen", timing=True) -> str:
+    """K3 at each (path, lanes) the launch's band admits, each output equal
+    to the wrapper's own choice's: with `timing`, their min times over
+    `batches`; and the choice, as a log line's tail."""
+    from pacbioassembly_tpu_torch.align import wavefront
+    from pacbioassembly_tpu_torch.config import Constants
+
+    kw = dict(dict(maxn=Constants.ALIGNER_MAXN, maxm=Constants.ALIGNER_MAXM), **kw)
+    auto = wavefront.batch_score_rowdp(*batches[0], kind=kind, **kw)
+    md_cap = max(min(kw["w_max"], kw["maxm"] - 1), 0)
+    parts = []
+    for path, lanes in wavefront.shapes(md_cap):
+        def fn(x, path=path, lanes=lanes):
+            return wavefront._launch(*x, kind=kind, path=path, lanes=lanes, **kw)
+        if max_err(torch, fn(batches[0]), auto) != 0:
+            raise AssertionError(f"K3 {path} path at {lanes} lanes != the wrapper's choice ({kw})")
+        if timing:
+            ms = min(timed(torch, fn, x)[0] for x in batches for _ in range(2))
+            parts.append(f"{path} {lanes} lanes {ms:.3f} ms")
+        else:
+            parts.append(f"{path} {lanes} lanes equal")
+    path, lanes = wavefront.launch_shape(md_cap)
+    return ", ".join(parts) + f"; the wrapper takes {path} {lanes}"
 
 
 class MainPathInputs:
@@ -517,6 +590,10 @@ def phase_main_path_kernels(torch, res, kept: MainPathInputs, path):
             items = [(a, {k: v for k, v in w.items() if k != "kind"}) for a, w in items]
             check_score(torch, res, kernel.split("_")[0], kw["kind"], items, "main-path",
                         f"B={B} LA={LA} LB={LB} W={W} R={R}")
+            if kernel.startswith("rowdp"):
+                log(f"[kernels:main-path] ... K3 builds on these inputs: "
+                    + k3_shapes(torch, [a for a, _ in items[:1]], items[0][1], kw["kind"],
+                                timing=False))
         elif kernel == "tbwave":
             check_parents(torch, res, items, "main-path",
                           f"Bp={B} LA={geom[0]} W={geom[1]} rows={kw['rows_max']}")
@@ -578,8 +655,8 @@ def device_view(trace_path: str) -> str:
         t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
         spans.append((t0, t0 + dur))
         if cat == "kernel":
-            m = re.search(r"(bitwave_(?:warp_)?kernel<[^>]*>|wavefront_kernel|tbwave_kernel<\d+>|walk_kernel)",
-                          e.get("name", ""))
+            m = re.search(r"(bitwave_(?:warp_)?kernel<[^>]*>|wavefront_kernel<[^>]*>|tbwave_kernel<\d+>"
+                          r"|walk_kernel)", e.get("name", ""))
             name = m.group(1) if m else "other kernels"
         else:
             name = "copies and memsets"
@@ -672,11 +749,12 @@ def profile_rounds(torch, asm, name, n):
 
 
 K1_SLICE_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+K3_SLICE_KERNELS = ("rowdp_prefilter", "rowdp_fullscreen", "tbwave", "walk")
 
 
-def slice_engine(torch, dev, genome_len, max_round):
-    """The E. coli-scale read store and the K1 path's engine on it; returns
-    (genome, reads, patterns, cfg, engine)."""
+def slice_engine(torch, dev, genome_len, max_round, screen_kernel="bitwave"):
+    """The E. coli-scale read store and an engine on it (the K1 path's by
+    default); returns (genome, reads, patterns, cfg, engine)."""
     from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
     from pacbioassembly_tpu_torch.codec import dna
     from pacbioassembly_tpu_torch.config import AssemblyConfig
@@ -690,14 +768,14 @@ def slice_engine(torch, dev, genome_len, max_round):
         max_seq_len=len(genome) + 500_000,
     )
     t0 = time.perf_counter()
-    k1 = BatchAssembler(cfg, reads, patterns, device=dev, screen_kernel="bitwave")
-    builder = k1._builder()
+    asm = BatchAssembler(cfg, reads, patterns, device=dev, screen_kernel=screen_kernel)
+    builder = asm._builder()
     if builder is None:
         raise AssertionError("read matrix does not fit the device matrix cap")
     torch.cuda.synchronize()
     log(f"[slice] set-up {time.perf_counter() - t0:.1f} s (device read matrix "
         f"{builder.reads_mat.numel() / 1e9:.2f} GB)")
-    return genome, reads, patterns, cfg, k1
+    return genome, reads, patterns, cfg, asm
 
 
 def phase_k1_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
@@ -705,6 +783,17 @@ def phase_k1_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
     phases and state, for comparing two trees of the port."""
     _, _, _, _, k1 = slice_engine(torch, dev, genome_len, max_round)
     run_slice(torch, k1, "bitwave slice", max_round, MainPathInputs(()), K1_SLICE_KERNELS)
+
+
+def phase_k3_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
+    """Only the K3 path's slice, on its own store (the same seeds as the
+    K1 slice's), then locate through K3 onto its contig: s/round, phases,
+    state and locate wall time, for comparing two trees of the port."""
+    _, _, _, _, k3 = slice_engine(torch, dev, genome_len, max_round, screen_kernel="rowdp")
+    run_slice(torch, k3, "rowdp slice", max_round, MainPathInputs(()), K3_SLICE_KERNELS)
+    log(f"[rowdp slice] state at round {k3.nround}: contig {k3.ref.length()} bp, "
+        f"{len(k3.reads) - len(k3.surviving)} reads consumed")
+    phase_locate(torch, dev, k3, k3.ref.text().copy(), {}, {}, kernels=("rowdp",))
 
 
 def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
@@ -734,8 +823,7 @@ def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
                            trial_cache=k1._trial_cache, device_builder=k1._device_builder)
     del k1
     counts["rowdp slice"] = run_slice(
-        torch, rowdp, "rowdp slice", rounds, kept["rowdp slice"],
-        ("rowdp_prefilter", "rowdp_fullscreen", "tbwave", "walk"))
+        torch, rowdp, "rowdp slice", rounds, kept["rowdp slice"], K3_SLICE_KERNELS)
     if not same_state(state_of(rowdp), snap):
         raise AssertionError(f"the row-DP path's state at round {rounds} differs from the K1 path's")
     log(f"[rowdp slice] RoundStats, contig bytes, votes and surviving reads equal the K1 "
@@ -744,8 +832,10 @@ def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
     return counts, kept, rowdp, genome, snap
 
 
-def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_other=500):
-    """Map 2,000 reads onto the row-DP path's contig with K3 and with K1."""
+def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_other=500,
+                 kernels=("rowdp", "bitwave")):
+    """Map 2,000 reads onto the row-DP path's contig with K3 and with K1
+    (or the `kernels` given), the TSVs equal."""
     from pacbioassembly_tpu_torch.codec import dna
     from pacbioassembly_tpu_torch.tools import cli, locate
 
@@ -760,7 +850,7 @@ def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_oth
     seqs = [reads.codes(int(i)).copy() for i in pick]
     pattern = dna.load_patterns(SEEDS)[0]
     tsv = {}
-    for kernel in ("rowdp", "bitwave"):
+    for kernel in kernels:
         name = f"{kernel} locate"
         kept[name] = MainPathInputs((kernel,))
         t0 = time.perf_counter()
@@ -774,9 +864,9 @@ def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_oth
         log(f"[{name}] {nproc} reads, {summary['mapped']} mapped in {wall:.2f} s; residual_error "
             f"{summary['residual_error']}, mean cost per read base "
             f"{summary['mean_cost_per_read_base']}")
-    if tsv["rowdp"] != tsv["bitwave"]:
+    if any(rows != tsv[kernels[0]] for rows in tsv.values()):
         raise AssertionError("locate: the K3 and K1 TSVs differ")
-    mapped = {r[0] for r in tsv["rowdp"]}
+    mapped = {r[0] for r in tsv[kernels[0]]}
     n_in = sum(1 for q, i in enumerate(pick) if int(i) not in surviving and q in mapped)
     if n_in < n_consumed // 2:
         raise AssertionError(f"locate: only {n_in} of {n_consumed} consumed reads mapped")
@@ -784,10 +874,11 @@ def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_oth
     t0 = time.perf_counter()
     cli.locate_host_loop(contig, pattern, seqs[:100], 0.15, out=out)
     host = [tuple(int(x) for x in line.split("\t")) for line in out.getvalue().splitlines()]
-    if host != [r for r in tsv["rowdp"] if r[0] < 100]:
+    if host != [r for r in tsv[kernels[0]] if r[0] < 100]:
         raise AssertionError("locate: the first 100 reads differ from the host loop")
-    log(f"[locate] K3 TSV == K1 TSV ({len(tsv['rowdp'])} rows, {n_in} of {n_consumed} consumed "
-        f"reads mapped); first 100 reads == host loop ({len(host)} rows, "
+    names = " == ".join({"rowdp": "K3", "bitwave": "K1"}[k] + " TSV" for k in kernels)
+    log(f"[locate] {names} ({len(tsv[kernels[0]])} rows, {n_in} of {n_consumed} consumed reads "
+        f"mapped); first 100 reads == host loop ({len(host)} rows, "
         f"{time.perf_counter() - t0:.2f} s)")
 
 
@@ -851,9 +942,17 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k1-slice", action="store_true",
-                    help="drive only the K1 path's E. coli slice (phase 3 without the "
-                         "profiled rounds), to compare two trees of the port")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--kernels", action="store_true",
+                      help="drive only the kernels against their plain versions at the "
+                           "synthetic shapes (phase 2 without the launch shapes), to compare "
+                           "two trees of the port")
+    mode.add_argument("--k1-slice", action="store_true",
+                      help="drive only the K1 path's E. coli slice (phase 3 without the "
+                           "profiled rounds), to compare two trees of the port")
+    mode.add_argument("--k3-slice", action="store_true",
+                      help="drive only the K3 path's E. coli slice on its own store and "
+                           "locate through K3 onto its contig, to compare two trees of the port")
     ap.add_argument("--port", default=REPO,
                     help="directory whose pacbioassembly_tpu_torch is driven (default: "
                          "this checkout), e.g. an unpacked `git archive` of another commit")
@@ -877,8 +976,13 @@ def main() -> int:
     log(f"[device] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"({'built' if built is not None else 'cached'}: nvcc {built or 0:.1f} s)")
 
-    if args.k1_slice:
+    one_phase = args.kernels or args.k1_slice or args.k3_slice
+    if args.kernels:
+        phase_kernels(torch, dev, Results(clock))
+    elif args.k1_slice:
         phase_k1_slice_only(torch, dev)
+    elif args.k3_slice:
+        phase_k3_slice_only(torch, dev)
     else:
         for line in _build.ptxas_report:
             log(f"[device] ptxas {line}")
@@ -897,7 +1001,7 @@ def main() -> int:
         kernels = kernel_line(res, counts)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
-    if not args.k1_slice:
+    if not one_phase:
         print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -188,7 +188,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, I, P, I, P, P, I,      # a, LA, b, LB, la, lb, B
         P, P, P, I,               # early_thr, accept_min, band_tab, tab_len
         I, I, I, I,               # la_max, w_max, maxn, maxm
-        P, P,                     # out, stream
+        I, I, P, P,               # warp path, lanes, out, stream
     ]
     lib.pb_wavefront.restype = I
     lib.pb_tbwave.argtypes = [

@@ -9,9 +9,11 @@ goal, threshold or early-failure logic.
     bits [2r, 2r+1] of [q, rb, k] = the parent of DP cell (row rb*16+r+1,
     band lane k) of pair q, MATCH > INSERT > DELETE on ties, bit-equal to
     the JAX plane.
-  * `walk_parents` walks the plane back from the goal cell (csrc/walk.cu;
-    replaces the XLA while_loop walk_parents) and emits left-aligned edit
-    streams: ops, vals (B, E) uint8 and nedit (B,) int32.
+  * `walk_parents` walks the plane back from the goal cell (csrc/walk.cu,
+    a warp per pair taking a word's run of MATCH parents a step, the plane
+    copied 128-lane tiles of row blocks ahead of the walk; replaces the XLA
+    while_loop walk_parents) and emits left-aligned edit streams: ops, vals
+    (B, E) uint8 and nedit (B,) int32.
 
 For CUDA tensors each wrapper launches its kernel or raises; for CPU
 tensors it runs the plain version beside it (`batch_parents_plain`, a
@@ -32,6 +34,7 @@ from .scan import COMPACT, INF, pair_geometry, threshold_tensors
 CHUNK = 128   # plane lane/row quantum (the JAX plane's shape)
 RB = 16       # DP rows per packed int32 (2-bit parents)
 TB_WALK = 32  # the walk emits in blocks of this many edits
+WALK_TILE, WALK_RING = 128, 8  # csrc/walk.cu: plane words a tile, tiles in its ring
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 TB_STATIC_SMEM = 512  # K2's static shared arrays (per-warp minima and first lanes)
 TB_MAX_LANES = 16 * 768  # K2: 16 lanes per thread, 768 threads
@@ -299,6 +302,14 @@ def _launch_walk(parents, b, lb_dp, md, matlen_a, matlen_b, accept, *, w_max, e_
         _build.check_tensor(t, torch.int32, (B,), name, dev)
         vecs.append(t.contiguous())
     _build.check_tensor(accept, torch.bool, (B,), "accept", dev)
+    # shared memory: a ring of WALK_RING tiles of WALK_TILE plane words, the
+    # ops and vals staging rows (E bytes each) and the b row
+    smem = WALK_RING * WALK_TILE * 4 + 2 * _round_up(e_max, 16) + LB
+    if S < WALK_TILE or NRB < 1 or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"walk of a ({NRB}, {S}) plane with E={e_max} and b rows of {LB}: needs S >= "
+            f"{WALK_TILE}, NRB >= 1 and {smem} B of shared memory (limit {SMEM_LIMIT})"
+        )
     acc = accept.to(torch.uint8).contiguous()
     parents, b = parents.contiguous(), b.contiguous()
     ops = torch.empty((B, e_max), dtype=torch.uint8, device=dev)

@@ -42,9 +42,6 @@
 namespace pbt {
 namespace {
 
-constexpr int kMaxWarps = 32;
-constexpr int kScanId = 1 << 30;  // identity of the prefix minimum, above every u
-
 // threads a block of L lanes per thread may have (registers: pr and pw are
 // 2L of them)
 constexpr int max_threads(int L) { return L <= 8 ? 1024 : 768; }
@@ -129,7 +126,7 @@ __global__ void __launch_bounds__(max_threads(L)) tbwave_kernel(
     const unsigned b_next = bs[clampi(k0 + L - 1 + i - W, 0, bmax)];
     if (!idle) {
       // UP source of the last lane: the next thread's first lane
-      int nxt = __shfl_down_sync(0xffffffffu, pr[0], 1);
+      int nxt = __shfl_down_sync(kFull, pr[0], 1);
       if (lane == 31) nxt = first[warp + 1];
 
       // mismatch bytes (0xff) of the four codes in each word
@@ -154,27 +151,16 @@ __global__ void __launch_bounds__(max_threads(L)) tbwave_kernel(
         tmin = min(tmin, pr[l]);
       }
       // warp scan of the threads' minima; lane 31 holds the warp's
-      int x = tmin;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, off);
-        if (lane >= off) x = min(x, y);
-      }
-      excl = __shfl_up_sync(0xffffffffu, x, 1);
-      if (lane == 0) excl = kScanId;
+      const int x = warp_scan_min(tmin, lane);
+      excl = warp_exclusive(x, lane);
       if (lane == 31) tot[warp] = x;
     }
     __syncthreads();
 
     if (!idle) {
       // the running minimum entering this thread's first lane: the earlier
-      // warps' totals, one a lane, reduced by a butterfly
-      int before = lane < warp ? tot[lane] : kScanId;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        before = min(before, __shfl_xor_sync(0xffffffffu, before, off));
-      }
-      int run = min(excl, before);
+      // warps' totals
+      int run = min(excl, earlier_warps_min(tot, warp, lane));
       const int kl = k0 - 1;  // the left neighbour of the first lane
       bool left_live = kl >= lo && ((kl >= vlo && kl <= vhi) || kl == kbord);
       int left_run = run;

@@ -16,6 +16,7 @@ from pacbioassembly_tpu_torch import _build
 from pacbioassembly_tpu_torch.align import bitwave, wavefront
 from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
 
+from torch_jax_native import jax_native_loader  # noqa: F401  (builds the JAX library aside)
 from torch_slice import (
     assert_same_state,
     history_dicts,

@@ -12,6 +12,7 @@ import torch
 from pacbioassembly_tpu.assemble import ReadStore
 from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
 
+from torch_jax_native import jax_native_loader  # noqa: F401  (builds the JAX library aside)
 from torch_slice import (
     assert_same_state,
     history_dicts,

@@ -20,6 +20,8 @@ from pacbioassembly_tpu_torch.codec.dna import load_patterns
 from pacbioassembly_tpu_torch.config import AssemblyConfig
 from pacbioassembly_tpu_torch.index import build_seedmap
 
+from torch_jax_native import jax_native_loader  # noqa: F401  (builds the JAX library aside)
+
 torch.set_num_threads(1)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")

@@ -33,7 +33,15 @@ from pacbioassembly_tpu_torch.consensus.elect import elect_packed
 from pacbioassembly_tpu_torch.tools.locate import map_reads
 from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 
-from torch_parity import batch_tensors, overlap_cases, pack, random_cases
+from torch_parity import (
+    WALK_W,
+    batch_tensors,
+    overlap_cases,
+    pack,
+    random_cases,
+    walk_batch,
+    walk_edge_cases,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -133,6 +141,9 @@ def test_screening_kernels_at_the_locators_widest_band(cuda):
     k1 = batch_score_bitwave(*args, kind="locate", **kw)
     k3 = batch_score_rowdp(*args, kind="locate", **kw)
     p = batch_score(*args, **kw)
+    from pacbioassembly_tpu_torch.align.wavefront import launch_shape
+
+    assert launch_shape(W) == ("block", 16)  # K3's widest build: 768 threads of 16 lanes
     torch.cuda.synchronize()
     for f in range(6):
         assert torch.equal(k1[f].to(torch.int32), p[f].to(torch.int32)), f
@@ -349,3 +360,95 @@ def test_engine_on_card_equals_cpu(cuda, screen_kernel):
     assert {k for k in _build.KERNELS if g[2][k] > 0} == used
     assert all(g[2][k] == 0 for k in _build.PLAIN)
     assert all(c[2][k] == 0 for k in _build.KERNELS)
+
+
+def _k3_edge_cases(rng, W):
+    """Pairs for a K3 launch of band half-width W at R=0.3: md = W swapped
+    and not, unrelated pairs (early failures, some at row 11), a far column
+    and a final row each with two equal minima, n = 1, an empty side each
+    way, and a size-rejected pair (md > W)."""
+    n = _length_for_md(W)
+    src = rng.integers(0, 4, n + 400).astype(np.uint8)
+    seg = src[:n].copy()
+    sub = rng.random(n) < 0.03
+    seg[sub] = (seg[sub] + 1) % 4
+    x = rng.integers(0, 4, 120).astype(np.uint8)
+    big = _length_for_md(W + 3)
+    return [
+        (src[: n + 40], seg),                                           # swapped, md = W
+        (seg, src[: n + 60]),                                           # md = W
+        (np.append(x, [2, 1]).astype(np.uint8), np.append(x, 1).astype(np.uint8)),  # far-column tie
+        (np.append(x, 1).astype(np.uint8), np.append(x, [2, 1]).astype(np.uint8)),  # final-row tie
+        (x[:1], x[:1]),
+        (x[:5], np.zeros(0, np.uint8)),
+        (np.zeros(0, np.uint8), x[:5]),
+        (src[:big], src[: big + 10]),                                   # md > W: size-rejected
+    ] + [(rng.integers(0, 4, m).astype(np.uint8), rng.integers(0, 4, m).astype(np.uint8))
+         for m in [min(200, n)] * 25]
+
+
+@pytest.mark.parametrize("W", [58, 250])  # the prefilter's band (117 lanes), and 501 lanes
+def test_rowdp_shapes_at_their_edges_equal_plain(cuda, W):
+    """K3 at every build that holds the band, on both sides of the
+    warp/block cutover (W = 58: the warp path's band, where every build
+    runs; W = 250: the block path's), and the wrapper's own choice, against
+    the plain row DP: B = 1 (each edge pair alone) and B = 33 (all
+    together)."""
+    from pacbioassembly_tpu_torch.align import wavefront
+    from pacbioassembly_tpu_torch.config import Constants
+
+    rng = np.random.default_rng(W)
+    cases = _k3_edge_cases(rng, W)
+    LA = LB = max(max(len(a), len(b)) for a, b in cases)
+    kw = dict(la_max=LA, w_max=W, ratio=0.3)
+    lim = dict(maxn=Constants.ALIGNER_MAXN, maxm=Constants.ALIGNER_MAXM)
+    shapes = wavefront.shapes(W)
+    assert shapes[0] == wavefront.launch_shape(W) == (("warp", 4) if W == 58 else ("block", 8))
+    assert shapes == list(wavefront.BUILDS if W == 58 else wavefront.BUILDS[1:])
+    for batch in [cases[:33]] + [[c] for c in cases[:8]]:
+        args = batch_tensors(*pack(batch, LA, LB), device=cuda)
+        p = batch_score(*args, **kw)
+        before = _build.LAUNCHES["rowdp_fullscreen"]
+        runs = [batch_score_rowdp(*args, **kw)] + [
+            wavefront._launch(*args, kind="fullscreen", path=path, lanes=L, **kw, **lim)
+            for path, L in shapes
+        ]
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["rowdp_fullscreen"] == before + 1 + len(shapes)
+        for k in runs:
+            for f in range(6):
+                assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+        if len(batch) == 33:
+            acc = p.accept.tolist()
+            assert acc[:5] == [True, True, True, True, True] and not any(acc[5:8])
+            assert int(p.matlen_a[2]) == len(cases[2][1])   # the first of two far-column minima
+            assert int(p.matlen_b[3]) == len(cases[3][0])   # the first of two final-row minima
+            assert int(p.diag_cost[0]) == -1 and int(p.diag_cost[1]) >= 0
+            assert int(p.dp_rows[7]) == 0 and (p.dp_rows[8:] == 11).any()
+
+
+@pytest.mark.parametrize("name", sorted(walk_edge_cases()))
+def test_walk_kernel_on_edge_planes_equals_plain(cuda, name):
+    """W on the synthetic edge planes (tests/torch_parity.py): a run longer
+    than the tile's half-width each way, rows cut at the plane, k clamped
+    to 0 and to S - 1, zero parents, E too small, accept = 0; B = 1."""
+    args, E = walk_batch([walk_edge_cases()[name]], device=cuda)
+    want = walk_parents_plain(*args, w_max=WALK_W, e_max=E)
+    before = _build.LAUNCHES["walk"]
+    got = walk_parents(*args, w_max=WALK_W, e_max=E)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["walk"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_walk_kernel_on_a_batch_of_edge_planes_equals_plain(cuda):
+    """The edge planes with one E, in one launch."""
+    cases = [c for c in walk_edge_cases().values() if c[7] == 512]
+    args, E = walk_batch(cases, device=cuda)
+    want = walk_parents_plain(*args, w_max=WALK_W, e_max=E)
+    got = walk_parents(*args, w_max=WALK_W, e_max=E)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert int(want[2].max()) == E

@@ -38,6 +38,7 @@ import pacbioassembly_tpu_torch.tools.simulate as port_simulate
 import pacbioassembly_tpu_torch.utils.metrics as port_metrics
 
 from test_sharding import _random_edit_streams
+from torch_jax_native import jax_native_loader  # noqa: F401  (builds the JAX library aside)
 from torch_parity import overlap_cases, random_cases
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -135,8 +136,10 @@ def check_exact_align_native():
     assert os.path.dirname(lib._name) == os.path.join(
         os.path.dirname(os.path.dirname(port_pbcore.__file__)), "build"
     )
-    assert lib._name != jax_pbcore.load()._name
+    # the JAX package's, built for this module outside pacbioassembly_tpu/native/
     jlib = jax_pbcore.load()
+    assert os.path.dirname(jlib._name) != os.path.dirname(jax_pbcore._SRC_PATH)
+    assert lib._name != jlib._name
     hits = 0
     for a, b in _fuzz_pairs():
         for ratio in (0.3, 0.15):

@@ -1,6 +1,7 @@
-"""Numpy models of how the CUDA kernels K2 (csrc/tbwave.cu) and K1's warp
-path (csrc/bitwave.cu, bitwave_warp_kernel) split their work across lanes,
-threads and warps, held against the port's plain versions, which the other
+"""Numpy models of how the CUDA kernels K2 (csrc/tbwave.cu), K1's warp path
+(csrc/bitwave.cu, bitwave_warp_kernel), K3 (csrc/wavefront.cu) and W
+(csrc/walk.cu) split their work across lanes, threads and warps, held
+against the port's plain versions, which the other
 tests hold equal to the JAX package. They rehearse the kernels' logic where
 no card exists; the kernels themselves are held against the same plain
 versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
@@ -15,6 +16,18 @@ versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
   (c) K1: the word-split Myers column step with that carry, the shuffled
       shifts and dh/dv, and the warp's far-row argmin give
       align/scan.py::batch_score's fields.
+  (d) K3 (csrc/wavefront.cu): the row in L-lane runs over the pair's own
+      band, the live-cell fix-up only in threads at the live run's edges,
+      the prefix minimum of (a), and the early-failure and far-column
+      cells read from the slots their owners publish give
+      align/scan.py::batch_score's six fields, at L = 4, 8, 16 on the
+      block path and on the warp path (a warp per pair); the kernel is
+      built at warp 4, block 8 and block 16.
+  (e) W (csrc/walk.cu): the walk a word at a time, each step taking the
+      run of MATCH parents down its word, through 128-lane tiles of the
+      row blocks copied into a ring ahead of the walk and loaded at once
+      when the cell leaves its tile, gives
+      align/tbwave.py::walk_parents_plain's ops, vals and nedit.
 """
 
 import numpy as np
@@ -22,13 +35,29 @@ import pytest
 import torch
 
 from pacbioassembly_tpu_torch.align import scan
-from pacbioassembly_tpu_torch.align.tbwave import _geometry, batch_parents_plain, plane_dims
+from pacbioassembly_tpu_torch.align.tbwave import (
+    WALK_RING,
+    WALK_TILE,
+    _geometry,
+    batch_parents,
+    batch_parents_plain,
+    plane_dims,
+    walk_parents_plain,
+)
+from pacbioassembly_tpu_torch.align.wavefront import BUILDS, launch_shape, shapes
 from pacbioassembly_tpu_torch.align.types import DELETE, INSERT, MATCH
 from pacbioassembly_tpu_torch.config import Constants
 
 from test_scan import make_cases, pack
 from test_torch_tbwave import _multi_block_cases
-from torch_parity import batch_tensors, overlap_cases, random_cases
+from torch_parity import (
+    WALK_W,
+    batch_tensors,
+    overlap_cases,
+    random_cases,
+    walk_batch,
+    walk_edge_cases,
+)
 
 torch.set_num_threads(1)
 
@@ -360,3 +389,321 @@ def test_k1_word_split_column_step_gives_plain_scores(wpl):
     assert 5 <= acc.sum() < len(acc)
     assert (acc & (plain.diag_cost.numpy() == -1)).any()  # an accepted swapped pair
     assert ((~acc) & (plain.dp_rows.numpy() > 10) & (plain.dp_rows.numpy() < 200)).any()
+
+
+# ---------------------------------------------------------------- (d) K3
+
+
+def k3_model(A, las, Bm, lbs, *, la_max, w_max, ratio, L, warp,
+             maxn=Constants.ALIGNER_MAXN, maxm=Constants.ALIGNER_MAXM):
+    """BatchScores fields as wavefront_kernel<L, warp> computes them, one
+    pair at a time: T threads of L lanes over the pair's band 0 .. 2md."""
+    B, LA = A.shape
+    LB = Bm.shape[1]
+    tab_len = max(la_max, LB, LA) + 1
+    early_thr, accept_min, band_tab = scan._threshold_tables(ratio, tab_len)
+    band_cap = 2 * max(min(w_max, maxm - 1), 0) + 1
+    if warp:
+        assert band_cap <= 32 * L
+        T = 32
+    else:
+        T = -(-band_cap // (32 * L)) * 32
+    nw = T // 32
+    warp_of = np.arange(T) // 32
+    rows = []
+    for q in range(B):
+        la, lb = int(las[q]), int(lbs[q])
+        cond = lb >= la
+        md = int(band_tab[min(max(la if cond else lb, 0), tab_len)])
+        len_a = la if cond else min(la, lb + md)
+        len_b = min(lb, la + md) if cond else lb
+        ok = len_a < maxn + maxm and md < maxm and md <= w_max and len_a <= la_max
+        res = [0, INF, 0, 0, -1, len_a if ok else 0]
+        if not ok or min(len_a, len_b) < 1:
+            rows.append(res)
+            continue
+        hi = 2 * md
+        k = np.arange(T * L).reshape(T, L)  # thread t owns row t
+        idle = np.zeros(nw, bool) if warp else np.arange(nw) * 32 * L > hi
+        j0 = k - md
+        pr = np.where((k <= hi) & (j0 >= 0) & (j0 <= min(len_b, md)), j0, INF)
+        first = np.full(nw + 1, INF)
+        first[:nw][~idle] = pr[::32, 0][~idle]
+        act = np.repeat(~idle, 32)
+        failed, fail_i, best, best_i, d_ii = False, 0, INF, 0, INF
+        for i in range(1, len_a + 1):
+            vlo, vhi = max(0, md + 1 - i), min(hi, md + len_b - i)
+            kbord = md - i if i <= md else -1
+            kc = len_b - i + md
+            col = i >= len_b and kc >= 0
+            ai = int(A[q, min(i - 1, LA - 1)])
+            # UP source of each thread's last lane: shfl_down, or the next warp's first lane
+            nxt = np.concatenate([pr[1:, 0], [INF]])
+            nxt[31::32] = INF if warp else first[warp_of[31::32] + 1]
+            mm = Bm[q, np.clip(k + i - md - 1, 0, LB - 1)].astype(np.int64) != ai
+            D = np.minimum(pr + mm, np.concatenate([pr[:, 1:], nxt[:, None]], axis=1) + 1)
+            # the fix-up, only in threads not wholly inside the live run [vlo, vhi]
+            inner = (k[:, 0] >= vlo) & (k[:, -1] <= vhi)
+            valid = (k >= vlo) & (k <= vhi)
+            live = np.where(inner[:, None], True, valid | (k == kbord))
+            D = np.where(inner[:, None], D, np.where(k == kbord, i, np.where(valid, D, INF)))
+            u = D - k
+            x = _warp_scan_min(u.min(axis=1))
+            run = np.concatenate([np.full((nw, 1), SCAN_ID), x[:, :-1]], axis=1).ravel()
+            if not warp:  # the earlier warps' totals, after the first barrier
+                carry = np.array([min([SCAN_ID, *x[:w, 31]]) for w in range(nw)])
+                run = np.minimum(run, carry[warp_of])
+            new = np.empty_like(pr)
+            for l in range(L):
+                run = np.minimum(run, u[:, l])
+                new[:, l] = k[:, l] + run
+            new = np.where(live, new, INF)
+            pr = np.where(act[:, None], new, pr)  # warps past the band keep their INF row
+            first[:nw][~idle] = pr[::32, 0][~idle]
+            # the published slots: D(i, i) from lane md's owner, D(i, len_b) from lane kc's
+            d_ii = int(pr.ravel()[md])
+            c_far = int(pr.ravel()[kc]) if col else INF
+            if 10 < i <= len_b and d_ii > early_thr[min(i, tab_len)]:
+                failed, fail_i = True, i
+                break
+            if col and c_far < best:
+                best, best_i = c_far, i
+        res[5] = fail_i if failed else len_a
+        if not failed:
+            if len_a > len_b:
+                cost, ma, mb, dc = best, best_i, len_b, -1
+            else:
+                # each thread's first minimum over its lanes in [md, md + len_b - len_a],
+                # then (value, lane) minima over the warp and the warps
+                ghi = md + len_b - len_a
+                cand = [(int(pr[t, l]), int(k[t, l])) for t in range(T) for l in range(L)
+                        if md <= k[t, l] <= ghi]
+                cost, kk = min(cand)
+                ma, mb, dc = len_a, len_a + kk - md, d_ii
+            if mb >= accept_min[min(max(len_b, 0), tab_len)] and cost < INF:
+                res[:5] = [1, cost, ma, mb, dc]
+        rows.append(res)
+    return np.array(rows, np.int64).T
+
+
+def _k3_cases():
+    """Overlaps, unrelated pairs and the edges: a far column with two equal
+    minima, a final row with a tie, swapped and unswapped pairs, an empty
+    side, a pair whose md is the launch's w_max and one above it (size
+    rejected)."""
+    rng = np.random.default_rng(8)
+    cases = overlap_cases(rng, 10, src_len=400, seg_lo=60, seg_hi=260, err=0.08, a_lo=40, a_hi=380)
+    cases += random_cases(rng, 6, a_hi=300, b_hi=260)
+    x = rng.integers(0, 4, 300).astype(np.uint8)
+    cases += [
+        (np.append(x[:120], 1).astype(np.uint8), np.append(x[:120], [2, 1]).astype(np.uint8)),
+        (np.append(x[:120], [2, 1]).astype(np.uint8), np.append(x[:120], 1).astype(np.uint8)),
+        (x[:200], x[:260]),
+        (x[:260], x[:200]),
+        (x[:1], x[:1]),
+        (np.zeros(0, np.uint8), x[:5]),
+        (x[:5], np.zeros(0, np.uint8)),
+        (x[:280], x[:290]),  # md = 85 > w_max: size-rejected
+    ]
+    return cases
+
+
+@pytest.mark.parametrize("path, L", [("block", 4), ("block", 8), ("block", 16),
+                                     ("warp", 4), ("warp", 8), ("warp", 16)])
+def test_k3_lane_warp_block_split_gives_plain_scores(path, L):
+    LA, LB, ratio = 400, 300, 0.3
+    # the warp path holds the launch's band in one warp: 32 L lanes
+    W = (32 * L - 1) // 2 if path == "warp" else 82
+    A, las, Bm, lbs = pack(_k3_cases(), LA, LB)
+    plain = scan.batch_score(*batch_tensors(A, las, Bm, lbs), la_max=LA, w_max=W, ratio=ratio)
+    model = k3_model(A, las, Bm, lbs, la_max=LA, w_max=W, ratio=ratio, L=L, warp=path == "warp")
+    for f, name in enumerate(plain._fields):
+        np.testing.assert_array_equal(model[f], plain[f].numpy().astype(np.int64), name)
+    acc = plain.accept.numpy()
+    rows = plain.dp_rows.numpy()
+    assert 5 <= acc.sum() < len(acc)
+    assert (acc & (plain.diag_cost.numpy() == -1)).any()  # an accepted swapped pair
+    assert ((~acc) & (rows > 10) & (rows < 100)).any()    # an early failure
+    assert (~acc & (rows == 0)).any() or W >= 85           # the size reject
+
+
+def test_k3_launch_shapes_cover_the_paths():
+    """launch_shape: the warp path at 4 lanes wherever one warp holds the
+    band (the prefilter's 117 lanes), the block path at 8 lanes where 768
+    threads of 8 hold it (every full-screen and locate bucket), at 16
+    lanes above (locate's widest band)."""
+    assert launch_shape(0) == launch_shape(58) == launch_shape(63) == ("warp", 4)
+    assert launch_shape(64) == ("block", 8)
+    # locate's 1024-8192 buckets, the full screen's 4096 and 8192 buckets
+    assert {launch_shape(md) for md in (154, 308, 615, 1229, 2458)} == {("block", 8)}
+    assert launch_shape((8 * 768 - 1) // 2) == ("block", 8)
+    assert launch_shape((8 * 768 + 1) // 2) == launch_shape(6001) == ("block", 16)
+    assert shapes(58) == list(BUILDS) and shapes(6001) == [("block", 16)]
+    for md_cap in range(0, 6144, 97):
+        band = 2 * md_cap + 1
+        assert launch_shape(md_cap) == shapes(md_cap)[0]
+        for path, L in shapes(md_cap):
+            assert (band <= 32 * L) if path == "warp" else -(-band // (32 * L)) <= 24
+
+
+# ----------------------------------------------------------------- (e) W
+
+TILE, RING = WALK_TILE, WALK_RING  # csrc/walk.cu: kTile, kRing
+
+
+def walk_model(P, b, lb_dp, md, matlen_a, matlen_b, accept, *, w_max, e_max):
+    """(ops, vals, nedit, tile misses, late, steps) as walk_kernel computes
+    them, `late` the misses on entering a row block whose prefetched tile
+    does not hold k (the tile is loaded again over its slot): a
+    step reads one word of a 128-lane tile of its row block and takes the
+    run of MATCH parents down that word plus the parent below it; entering
+    row block rb issues the copy of rb - (RING - 1) into a ring of RING
+    slots, centred where rb was entered, and a cell outside its tile loads
+    the tile at once (a miss)."""
+    B, NRB, S = P.shape
+    LB = b.shape[1]
+    E = e_max
+    tmax = E // 32 * 32
+    ops = np.zeros((B, E), np.uint8)
+    vals = np.zeros((B, E), np.uint8)
+    nedit = np.zeros(B, np.int32)
+    misses = np.zeros(B, np.int64)
+    late = np.zeros(B, np.int64)
+    steps = np.zeros(B, np.int64)
+    for q in range(B):
+        os_, vs_ = np.zeros(E, np.uint8), np.zeros(E, np.uint8)  # back to front
+        lim = min(int(lb_dp[q]), int(md[q]))
+        i, j, t = int(matlen_a[q]), int(matlen_b[q]), 0
+        trb, tbase, tile, ring = -1, 0, None, {}
+
+        def prefetch(rbp, base):
+            if rbp >= 0:
+                ring[rbp % RING] = (rbp, base, P[q, rbp, base : base + TILE])
+
+        done = not accept[q]
+        while not done and t < tmax:
+            steps[q] += 1
+            if i == 0:
+                n, p = (j if 1 <= j <= lim else 0), 0
+            else:
+                k = min(max(j - i + w_max, 0), S - 1)
+                rb = min((i - 1) >> 4, NRB - 1)
+                if rb != trb or not tbase <= k < tbase + TILE:
+                    base = min(max(k - 63, 0), S - TILE)
+                    slot, have = rb % RING, False
+                    if rb == trb - 1:
+                        assert ring[slot][0] == rb  # the copy that went out RING - 1 entries ago
+                        tbase = ring[slot][1]
+                        have = tbase <= k < tbase + TILE
+                        prefetch(rb - (RING - 1), base)
+                    if not have:
+                        ring[slot] = (rb, base, P[q, rb, base : base + TILE])
+                        tbase = base
+                        misses[q] += 1
+                        late[q] += rb == trb - 1
+                        if trb < 0:
+                            for d in range(1, RING):
+                                prefetch(rb - d, base)
+                    trb, tile = rb, ring[slot][2]
+                w = int(tile[k - tbase]) & 0xFFFFFFFF
+                r = (i - 1) & 15
+                x = (w ^ 0x55555555) & (0xFFFFFFFF >> (30 - 2 * r))
+                f = (x.bit_length() - 1) >> 1 if x else -1
+                n, p = r - f, ((w >> (2 * f)) & 3 if f >= 0 else -1)
+            op = 2 if i == 0 else 1
+            m = min(n, tmax - t)
+            one = m == n and p > 0 and t + n < tmax
+            for l in range(m):
+                os_[E - 1 - t - l] = op
+                vs_[E - 1 - t - l] = b[q, min(max(j - 1 - l, 0), LB - 1)]
+            if one:
+                os_[E - 1 - t - n] = p
+                vs_[E - 1 - t - n] = b[q, min(max(j - 1 - n, 0), LB - 1)] if p != 3 else 0
+            t, j = t + m, j - m
+            i -= m if op == 1 else 0
+            if one:
+                t += 1
+                i -= p != 2
+                j -= p != 3
+            done = m < n or p == 0
+        ops[q, :t], vals[q, :t], nedit[q] = os_[E - t :], vs_[E - t :], t
+    return ops, vals, nedit, misses, late, steps
+
+
+def _walk_check(args, E, w_max):
+    model = walk_model(*(x.numpy() for x in args), w_max=w_max, e_max=E)
+    plain = walk_parents_plain(*args, w_max=w_max, e_max=E)
+    for m, p in zip(model[:3], plain):
+        np.testing.assert_array_equal(m, p.numpy())
+    return model
+
+
+@pytest.mark.parametrize("name", sorted(walk_edge_cases()))
+def test_w_tiled_walk_edges_give_the_plain_walk(name):
+    """Each synthetic edge plane alone (B = 1): tile misses where a run
+    leaves the window, the clamps, rows cut, E truncation, accept = 0."""
+    case = walk_edge_cases()[name]
+    args, E = walk_batch([case])
+    _, _, nedit, misses, late, _ = _walk_check(args, E, WALK_W)
+    n = int(nedit[0])
+    want = {"insert_run": n > 150 and misses[0] >= 2,  # the first load and a refetch
+            "delete_run": n > 100 and misses[0] >= 2 and late[0] >= 1,
+            "rows_cut": n > 160, "k_low": n == E,
+            "k_high": 10 <= n < 100, "stops": 0 < n < 150, "e_small": n == 64,
+            "rejected": n == 0}
+    assert want[name], (n, int(misses[0]), int(late[0]))
+
+
+def _words_read(P, lb_dp, md, matlen_a, matlen_b, accept, *, w_max, e_max):
+    """The distinct (pair, row block, lane) parent words a walk reads, an
+    edit at a time, as walk_parents_plain steps."""
+    B, NRB, S = P.shape
+    seen = set()
+    for q in range(B):
+        lim = min(int(lb_dp[q]), int(md[q]))
+        i, j, t = int(matlen_a[q]), int(matlen_b[q]), 0
+        while accept[q] and not (t % 32 == 0 and t + 32 > e_max):
+            if i == 0:
+                p = INSERT if 1 <= j <= lim else 0
+            else:
+                k, rb = min(max(j - i + w_max, 0), S - 1), min((i - 1) >> 4, NRB - 1)
+                seen.add((q, rb, k))
+                p = (int(P[q, rb, k]) >> (2 * ((i - 1) & 15))) & 3
+            if p == 0:
+                break
+            t, i, j = t + 1, i - (p != INSERT), j - (p != DELETE)
+    return len(seen)
+
+
+@pytest.mark.parametrize("name", sorted(walk_edge_cases()))
+def test_w_bound_counts_the_words_the_walk_reads(name):
+    """chip_smoke.py's bound for W reads only the words under the walk's
+    path, rebuilt from its edit stream, not the whole plane."""
+    import chip_smoke
+
+    args, E = walk_batch([walk_edge_cases()[name]])
+    out = walk_parents_plain(*args, w_max=WALK_W, e_max=E)
+    P, _, lb_dp, md, ma, mb, acc = (x.numpy() for x in args)
+    want = _words_read(P, lb_dp, md, ma, mb, acc, w_max=WALK_W, e_max=E)
+    assert chip_smoke.walk_words(torch, args, dict(w_max=WALK_W), out) == want
+    assert want < P.size or name == "rejected"
+
+
+def test_w_tiled_walk_gives_the_plain_walk_from_screened_goals():
+    """Planes of real pairs (the parent kernel's plain version, rows cut
+    at the plane) walked from the plain scan's goal cells, in one batch."""
+    from test_torch_tbwave import _multi_block_cases as mb_cases
+
+    cases = mb_cases() + make_cases(np.random.default_rng(6), 10, max_len=200)
+    LA = LB = 320
+    A, las, Bm, lbs = pack(cases, LA, LB)
+    W = _full_band(las, lbs, 0.3)
+    args = batch_tensors(A, las, Bm, lbs)
+    sc = scan.batch_score(*args, la_max=LA, w_max=W, ratio=0.3)
+    for rows_max in (None, 128):
+        pk, md, lb_dp = batch_parents(*args, la_max=LA, w_max=W, ratio=0.3, rows_max=rows_max)
+        E = pk.shape[1] * 16 + W + 2 + 32
+        _, _, nedit, misses, _, steps = _walk_check(
+            (pk, args[2], lb_dp, md, sc.matlen_a, sc.matlen_b, sc.accept), E, W)
+        assert (nedit > 200).any() and int(sc.accept.sum()) > 5
+        assert steps.sum() * 4 < nedit.sum() and misses.max() <= 2  # runs of MATCH; few misses

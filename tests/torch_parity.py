@@ -83,3 +83,78 @@ def pack(cases, LA, LB):
         las[i] = len(a)
         lbs[i] = len(b)
     return A, las, Bm, lbs
+
+
+# ------------------------------------------------------ walk edge planes
+
+WALK_W, WALK_S, WALK_NRB, WALK_LB = 60, 256, 8, 300  # one launch: 128 rows, 256 lanes
+WALK_E = 512
+
+
+def _parent_words(rng, shape, p_match=0.8, p_zero=0.0):
+    """Packed parent words (int32), each 2-bit field MATCH with p_match,
+    else INSERT or DELETE alike, or 0 (a stop) with p_zero."""
+    rest = (1.0 - p_match - p_zero) / 2
+    f = rng.choice(4, size=(*shape, 16), p=[p_zero, p_match, rest, rest]).astype(np.uint32)
+    return (f << (2 * np.arange(16, dtype=np.uint32))).sum(axis=-1, dtype=np.uint32).view(np.int32)
+
+
+def _fill(plane, rb_lo, rb_hi, k_lo, k_hi, op):
+    """Every row of row blocks [rb_lo, rb_hi] at lanes [k_lo, k_hi] = op."""
+    word = np.uint32(sum(op << (2 * r) for r in range(16))).view(np.int32)
+    plane[rb_lo : rb_hi + 1, k_lo : k_hi + 1] = word
+
+
+def walk_edge_cases(seed=0):
+    """Synthetic parent planes for the walk (csrc/walk.cu and its plain
+    version), one pair each, on a shared (NRB, S) = (8, 256), W = 60:
+    {name: (plane, b row, lb_dp, md, matlen_a, matlen_b, accept, E)}.
+
+      insert_run  91 INSERTs in one row block from k = 110 down to 20,
+                  longer than the tile's half-width (63 lanes)
+      delete_run  88 DELETEs from k = 100 up to 188 across six row blocks:
+                  k leaves its tile inside row block 3, then enters row
+                  block 2 past the tile prefetched for it
+      rows_cut    the walk starts at row 170, past the plane's 128 rows:
+                  rows past it read the last row block again
+      k_low       j - i + W < 0 at the start: k clamped to 0
+      k_high      j - i + W > S - 1 at the start: k clamped to S - 1
+      stops       a plane with 1% zero parents: the walk stops early
+      e_small     E = 70: the walk stops before its third block of 32
+      rejected    accept = 0: nedit 0 and all zeros
+    """
+    rng = np.random.default_rng(seed)
+    shape = (WALK_NRB, WALK_S)
+    cases = {}
+
+    def add(name, plane, ma, mb, accept=True, E=WALK_E):
+        b = rng.integers(0, 4, WALK_LB).astype(np.uint8)
+        cases[name] = (plane, b, 250, 60, ma, mb, accept, E)
+
+    p = _parent_words(rng, shape)
+    _fill(p, 6, 6, 20, 110, 2)   # INSERT
+    _fill(p, 6, 6, 19, 19, 1)    # then MATCH
+    add("insert_run", p, 100, 150)
+    p = _parent_words(rng, shape)
+    _fill(p, 2, 7, 100, 199, 3)  # DELETE
+    add("delete_run", p, 120, 160)
+    add("rows_cut", _parent_words(rng, shape), 170, 160)
+    add("k_low", _parent_words(rng, shape), 110, 20)
+    add("k_high", _parent_words(rng, shape), 10, 250)
+    add("stops", _parent_words(rng, shape, p_match=0.79, p_zero=0.01), 120, 130)
+    add("e_small", _parent_words(rng, shape), 120, 125, E=70)
+    add("rejected", _parent_words(rng, shape), 120, 125, accept=False)
+    return cases
+
+
+def walk_batch(cases, device="cpu"):
+    """Stack walk cases (the same E) into the walk's tensors: (plane, b,
+    lb_dp, md, matlen_a, matlen_b, accept), E."""
+    cols = list(zip(*cases))
+    Es = set(cols[7])
+    assert len(Es) == 1, Es
+    planes, bs = np.stack(cols[0]), np.stack(cols[1])
+    vecs = [np.array(c, np.int32) for c in cols[2:6]]
+    acc = np.array(cols[6], bool)
+    out = tuple(T(x).to(device) for x in (planes, bs, *vecs, acc))
+    return out, Es.pop()
