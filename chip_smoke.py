@@ -3,32 +3,37 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels [--port DIR]    # only the kernels against their plain versions (2)
-    python3 chip_smoke.py --k1-slice [--port DIR]   # only the K1 slice of 3, of DIR's port
+    python3 chip_smoke.py --k1-slice [--port DIR]   # only the K1 slice of 3 (profiled rounds too), of DIR's port
     python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
   1. device: the card's name, power limit and top SM clock (nvidia-smi), the
-     build time and ptxas's report (registers, shared memory, spills) of
-     every kernel;
+     build time and ptxas's report (registers, shared memory, stack, spills)
+     of every kernel, K1's thread build on a line of its own (and in every
+     mode);
   2. kernels vs plain versions on the card, exact equality, on simulated
      overlaps at 3% and 15% error plus random non-overlaps: the screening
      kernels K1 (bitwave.cu) and K3 (wavefront.cu) at the prefilter geometry
-     (B=4096, LB=128, W=58, R=0.45) and at the 2048, 4096 and 8192
-     full-screen buckets (B=1024, R=0.3), K3 also held equal to K1 field by
-     field; K2 (tbwave.cu) and W (walk.cu) at Bp=32 in the same three
+     (LB=128, W=58, R=0.45; B=4096, and B=32768 as on the main path) and at
+     the 2048, 4096 and 8192 full-screen buckets (B=1024, R=0.3), K3 also
+     held equal to K1 field by field; K2 (tbwave.cu) and W (walk.cu) at Bp=32 in the same three
      buckets; a 256-pair sample against the native host aligner; then each
-     kernel's launch shapes: K1's thread and warp paths at the prefilter's
-     2 words a stripe, K2 at each lanes-per-thread shape, and K3 at each
-     lanes-per-thread shape on both sides of its warp/block cutover at the
-     paths' geometries, each equal to the wrapper's choice;
+     kernel's launch shapes: K1's thread path at 16, 32 and 64 pairs a
+     block and its warp path at the prefilter's 2 words a stripe (B =
+     32,768, 4,096 and 1,024), K2 at each lanes-per-thread shape, and K3
+     at each lanes-per-thread shape on both sides of its warp/block cutover
+     at the paths' geometries, each equal to the wrapper's choice;
   3. the main path with K1 at E. coli scale: 4.6 Mb at 30x, reads of mean
      2,500, 3% uniform error, seed 11; BatchAssembler on cuda, rng_seed 7,
      round-robin over tests/data/seeds.txt, 60 rounds (more if no round has
      yet reached the prefilter's candidate threshold); every kernel of the
      path must have launched and no plain version. Its state is kept, then
      a few more rounds run under torch.profiler (the engine's profile_dir):
-     the card's busy share and device time by kernel;
+     the card's busy share and device time by kernel, and what fills a
+     prefilter pass (host vectors, the on-device gather, the screening call,
+     the fetch; on the card the screening kernel, PyTorch's kernels and
+     copies);
   4. the row-DP path: the same read store, trial-seed cache and device read
      matrix, screen_kernel="rowdp", as many rounds; K3 and K2/W launch, no
      K1 and no plain version, and its RoundStats, contig bytes, votes and
@@ -45,10 +50,12 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
   7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
      contig bytes, votes and surviving reads.
 
-Kernel times are CUDA events: a kernel's is the min over fresh inputs, a
-plain version's is its one checked run (each plain version runs once on
-a tiny batch first, so that PyTorch's lazy kernel loading stays out of
-the timed runs). Each kernel's bound is the larger of the bytes its
+Kernel times are CUDA events: a kernel's is the min over fresh inputs of
+its wrapper's launches queued behind a spin kernel, so that the host's
+enqueueing stays out of it (the wrapper's time on an idle card, host
+overhead included, is printed beside it); a plain version's is its one
+checked run (each plain version runs once on a tiny batch first, so that
+PyTorch's lazy kernel loading stays out of the timed runs). Each kernel's bound is the larger of the bytes its
 function must move over 3.35 TB/s and the integer operations of the least
 work known for its function on these inputs (`bound_work`: the same count
 for K1 and K3, over each pair's own band and its rows up to failure or
@@ -60,6 +67,7 @@ nothing of the JAX package: only the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -78,6 +86,7 @@ BUCKETS = (2048, 4096, 8192)  # full-screen buckets the E. coli slice launches a
 PROFILED_ROUNDS = {"bitwave": 10, "rowdp": 10}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_LANES = 132 * 64     # SMs x INT32 lanes per SM
+QUEUE_CYCLES = 10_000_000  # ~5 ms of spinning ahead of a timed kernel (timed)
 
 
 def log(*a):
@@ -92,11 +101,16 @@ def nvidia_smi(fields="name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed(torch, fn, x):
-    """(card ms, result) of fn(x), by CUDA events."""
+def timed(torch, fn, x, queued=False):
+    """(card ms, result) of fn(x), by CUDA events. With `queued`, a spin
+    kernel keeps the card busy while the host enqueues the events and fn's
+    launches, so the time is the card's alone; without, it also holds
+    whatever the card waits for the host (a wrapper's own overhead)."""
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     s.record()
     out = fn(x)
     e.record()
@@ -234,7 +248,8 @@ class Results:
         self.rows: list[dict] = []
         self.int_rate = INT32_LANES * clock_mhz * 1e6
 
-    def add(self, torch, kernel, where, shape, err, ms, plain_ms, args, kw, out):
+    def add(self, torch, kernel, where, shape, err, times, plain_ms, args, kw, out):
+        ms, wrapper_ms = times  # _kernel_ms
         if err != 0:
             raise AssertionError(f"{kernel} ({where}, {shape}): kernel != plain (max abs err {err})")
         nbytes, ops = bound_work(torch, kernel, args, kw, out)
@@ -243,17 +258,22 @@ class Results:
         by = "bytes" if t_bytes >= t_ops else "operations"
         self.err[kernel] = max(self.err.get(kernel, 0), err)
         self.rows.append(dict(kernel=kernel, where=where, shape=shape, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound, bound_by=by))
-        log(f"[kernels:{where}] {kernel} {shape}: equal; kernel {ms:.3f} ms, plain "
+                              bound_ms=bound, bound_by=by, wrapper_ms=wrapper_ms))
+        log(f"[kernels:{where}] {kernel} {shape}: equal; kernel {ms:.4f} ms (wrapper on an idle "
+            f"card {wrapper_ms:.4f} ms), plain "
             f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
             f"{ops / 1e9:.3f} G int ops)")
 
 
 def _kernel_ms(torch, fn, items):
-    """Min card time of the kernel over the fresh inputs that share the
-    first input's static arguments (the first itself when none does)."""
+    """(kernel ms, wrapper ms): min card time over the fresh inputs that
+    share the first input's static arguments (the first itself when none
+    does), of the wrapper's launches queued behind a spin kernel (the
+    card's time alone) and of the wrapper called on an idle card (its host
+    overhead included)."""
     same = [x for x in items[1:] if x[1] == items[0][1]] or items[:1]
-    return min(timed(torch, lambda x: fn(*x[0], **x[1]), x)[0] for x in same)
+    return tuple(min(timed(torch, lambda x: fn(*x[0], **x[1]), x, queued=q)[0] for x in same)
+                 for q in (True, False))
 
 
 def screen_fn(name):
@@ -332,14 +352,18 @@ def phase_kernels(torch, dev, res):
     def up(batch):
         return tuple(torch.from_numpy(x).to(dev) for x in batch)
 
-    geoms = [("prefilter", 4096, 128, 0.45)] + [("fullscreen", 1024, c, 0.3) for c in BUCKETS]
-    for kind, B, LB, ratio in geoms:
+    # the prefilter at the main path's batch (B = 32,768) draws from a
+    # generator of its own, so that the other shapes keep earlier runs' inputs
+    geoms = ([("prefilter", 4096, 128, 0.45, rng),
+              ("prefilter", 32768, 128, 0.45, np.random.default_rng(2025))]
+             + [("fullscreen", 1024, c, 0.3, rng) for c in BUCKETS])
+    for kind, B, LB, ratio, gen in geoms:
         if kind == "prefilter":
             W = 1 + int(LB * ratio)
             LA = LB + W + 1
         else:
             LB, LA, W = size_bucket(LB, ratio)
-        batches = [up(make_pairs(rng, B, LB, LA)) for _ in range(4)]
+        batches = [up(make_pairs(gen, B, LB, LA)) for _ in range(4)]
         kw = dict(la_max=LA, w_max=W, ratio=ratio)
         shape = f"B={B} LA={LA} LB={LB} W={W} R={ratio}"
         items = [(x, kw) for x in batches]
@@ -397,10 +421,11 @@ def phase_kernels(torch, dev, res):
 
 def phase_kernel_shapes(torch, dev):
     """Each kernel's launch shapes on fresh synthetic batches, every output
-    equal to the wrapper's own choice's: K1's thread and warp paths at the
-    prefilter's 2 words a stripe, the only width both are built for, K2 at
-    each lanes-per-thread shape its plane admits, and K3 at each shape on
-    both paths where its band fits."""
+    equal to the wrapper's own choice's: K1's thread path at 16, 32 and 64
+    pairs a block and its warp path at the prefilter's 2 words a stripe,
+    the only width both are built for, K2 at each lanes-per-thread shape
+    its plane admits, and K3 at each shape on both paths where its band
+    fits."""
     from pacbioassembly_tpu_torch.align import bitwave, tbwave
     from pacbioassembly_tpu_torch.align.screen import size_bucket
     from pacbioassembly_tpu_torch.config import Constants
@@ -412,11 +437,11 @@ def phase_kernel_shapes(torch, dev):
         return tuple(torch.from_numpy(x).to(dev) for x in batch)
 
     def fastest(fn, batches):
-        return min(timed(torch, fn, x)[0] for x in batches for _ in range(2))
+        return min(timed(torch, fn, x, queued=True)[0] for x in batches for _ in range(2))
 
     ratio = 0.45
     words = 2
-    for B in (32768, 1024):
+    for B in (32768, 4096, 1024):
         W = 32 * words - 1  # exactly `words` words a stripe
         LB = int((W - 1) / ratio)
         LA = LB + W + 1
@@ -424,14 +449,17 @@ def phase_kernel_shapes(torch, dev):
         kw = dict(la_max=LA, w_max=W, ratio=ratio, **lim)
         auto = bitwave.batch_score_bitwave(*batches[0], **kw)
         ms = {}
-        for path in ("thread", "warp"):
-            def fn(x, path=path):
-                return bitwave._launch(*x, kind="fullscreen", path=path, **kw)
+        for path, pairs in (("thread", 16), ("thread", 32), ("thread", 64), ("warp", None)):
+            def fn(x, path=path, pairs=pairs):
+                return bitwave._launch(*x, kind="fullscreen", path=path,
+                                       pairs=pairs or bitwave.THREAD_PAIRS, **kw)
             if max_err(torch, fn(batches[0]), auto) != 0:
-                raise AssertionError(f"K1 {path} path != the wrapper's choice (B={B} W={W})")
-            ms[path] = fastest(fn, batches)
-        log(f"[kernels:shapes] K1 B={B} W={W} ({words} words): thread {ms['thread']:.3f} ms, "
-            f"warp {ms['warp']:.3f} ms; the wrapper takes the thread path")
+                raise AssertionError(f"K1 {path} path ({pairs} pairs a block) != the wrapper's "
+                                     f"choice (B={B} W={W})")
+            ms[f"thread {pairs} pairs a block" if pairs else "warp"] = fastest(fn, batches)
+        log(f"[kernels:shapes] K1 B={B} W={W} ({words} words): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f"; the wrapper takes the thread path at {bitwave.THREAD_PAIRS} pairs a block")
         if B == 32768:
             prefilter_like = (batches, LA, W, ratio)
 
@@ -482,7 +510,7 @@ def k3_shapes(torch, batches, kw, kind="fullscreen", timing=True) -> str:
         if max_err(torch, fn(batches[0]), auto) != 0:
             raise AssertionError(f"K3 {path} path at {lanes} lanes != the wrapper's choice ({kw})")
         if timing:
-            ms = min(timed(torch, fn, x)[0] for x in batches for _ in range(2))
+            ms = min(timed(torch, fn, x, queued=True)[0] for x in batches for _ in range(2))
             parts.append(f"{path} {lanes} lanes {ms:.3f} ms")
         else:
             parts.append(f"{path} {lanes} lanes equal")
@@ -655,8 +683,8 @@ def device_view(trace_path: str) -> str:
         t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
         spans.append((t0, t0 + dur))
         if cat == "kernel":
-            m = re.search(r"(bitwave_(?:warp_)?kernel<[^>]*>|wavefront_kernel<[^>]*>|tbwave_kernel<\d+>"
-                          r"|walk_kernel)", e.get("name", ""))
+            m = re.search(r"(bitwave_(?:warp_)?kernel(?:<[^>]*>)?|wavefront_kernel<[^>]*>"
+                          r"|tbwave_kernel<\d+>|walk_kernel)", e.get("name", ""))
             name = m.group(1) if m else "other kernels"
         else:
             name = "copies and memsets"
@@ -675,6 +703,93 @@ def device_view(trace_path: str) -> str:
                       sorted(by_name.items(), key=lambda kv: -kv[1][1]))
     return (f"card busy {busy:.4f} s of a {window:.3f} s window = {100 * busy / window:.2f}%; "
             f"device time by kernel: {parts}")
+
+
+PREFILTER_LABELS = ("pbt:vectors", "pbt:gather", "pbt:screen")
+
+
+@contextlib.contextmanager
+def labelled_prefilter(torch):
+    """Label the prefilter pass and its parts as torch.profiler ranges: the
+    pass (BatchAssembler._prefilter), its host vectors (_device_vectors),
+    the on-device gather (DeviceBatchBuilder.materialize) and the screening
+    call (gather.score_batch, the kernel's wrapper); the rest of a pass is
+    the result's stack, its fetch to the host and the pass's own loop."""
+    from pacbioassembly_tpu_torch.assemble import batch, gather
+
+    slots = [(batch.BatchAssembler, "_prefilter", "pbt:prefilter"),
+             (batch.BatchAssembler, "_device_vectors", PREFILTER_LABELS[0]),
+             (gather.DeviceBatchBuilder, "materialize", PREFILTER_LABELS[1]),
+             (gather, "score_batch", PREFILTER_LABELS[2])]
+    real = [getattr(owner, attr) for owner, attr, _ in slots]
+
+    def labelled(fn, label):
+        def run(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return run
+
+    for (owner, attr, label), fn in zip(slots, real):
+        setattr(owner, attr, labelled(fn, label))
+    try:
+        yield
+    finally:
+        for (owner, attr, _), fn in zip(slots, real):
+            setattr(owner, attr, fn)
+
+
+def prefilter_view(trace_path: str) -> str:
+    """What fills the prefilter passes of a labelled profile window: host
+    time by part (inside the passes only; the parts also run for the full
+    screen and commits) and device time by kind of the spans that start
+    inside a pass, per pass."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "ts" in e]
+
+    def span(e):
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    passes = [span(e) for e in ann if e["name"] == "pbt:prefilter"]
+    if not passes:
+        return "not measured (no prefilter pass in the window)"
+    n = len(passes)
+    host = dict.fromkeys(PREFILTER_LABELS, 0.0)
+    for e in ann:
+        t0, t1 = span(e)
+        if e["name"] in host and any(a <= t0 and t1 <= b for a, b in passes):
+            host[e["name"]] += t1 - t0
+    total = sum(b - a for a, b in passes)
+    dev: dict = {}
+    torch_kernels: dict = {}
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        t0, t1 = span(e)
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset") or not any(
+                a <= t0 <= b for a, b in passes):
+            continue
+        if cat == "kernel" and re.search(r"bitwave_(?:warp_)?kernel|wavefront_kernel", name):
+            key = "screening kernel"
+        elif cat == "kernel":
+            key = "PyTorch kernels"
+            short = re.sub(r"\(.*", "", name)[:60]
+            c, d = torch_kernels.get(short, (0, 0.0))
+            torch_kernels[short] = (c + 1, d + t1 - t0)
+        elif cat == "gpu_memcpy":
+            key = "copies " + ("HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name else "DtoD")
+        else:
+            key = "memsets"
+        c, d = dev.get(key, (0, 0.0))
+        dev[key] = (c + 1, d + t1 - t0)
+    parts = ", ".join(f"{k[4:]} {host[k] / n / 1e3:.3f} ms" for k in PREFILTER_LABELS)
+    rest = (total - sum(host.values())) / n / 1e3
+    on_card = ", ".join(f"{k} {d / n / 1e3:.4f} ms in {c / n:g}" for k, (c, d) in
+                        sorted(dev.items(), key=lambda kv: -kv[1][1]))
+    top = ", ".join(f"{k} {d / n / 1e3:.4f} ms in {c / n:g}" for k, (c, d) in
+                    sorted(torch_kernels.items(), key=lambda kv: -kv[1][1])[:4])
+    return (f"{n} passes, {total / n / 1e3:.3f} ms a pass on the host clock: {parts}, stack + "
+            f"fetch + loop {rest:.3f} ms; on the card a pass: {on_card or 'no device spans'}; "
+            f"PyTorch's largest: {top or 'none'}")
 
 
 def state_of(asm) -> dict:
@@ -732,20 +847,26 @@ def run_slice(torch, asm, name, max_round, kept, used):
 
 
 def profile_rounds(torch, asm, name, n):
-    """n more rounds under the engine's own profiler option."""
+    """n more rounds under the engine's own profiler option, the prefilter
+    passes labelled: the card's busy share and device time by kernel, and
+    what fills a prefilter pass."""
     with tempfile.TemporaryDirectory() as tmp:
         first = asm.nround + 1
         trace_dir = os.path.join(tmp, "trace")
         asm.cfg = dataclasses.replace(asm.cfg, max_round=asm.nround + n,
                                       profile_dir=trace_dir, metrics_path=None)
         t0 = time.perf_counter()
-        asm.run(out=None)
+        with labelled_prefilter(torch):
+            asm.run(out=None)
         torch.cuda.synchronize()
         wall_p = time.perf_counter() - t0
-        view = device_view(os.path.join(trace_dir, "trace.json"))
+        trace = os.path.join(trace_dir, "trace.json")
+        view = device_view(trace)
+        pf_view = prefilter_view(trace)
     asm.cfg = dataclasses.replace(asm.cfg, profile_dir=None)
     log(f"[device-view:{name}] rounds {first}-{asm.nround} under torch.profiler "
         f"({wall_p:.3f} s on the host clock with the trace export): {view}")
+    log(f"[prefilter:{name}] rounds {first}-{asm.nround}: {pf_view}")
 
 
 K1_SLICE_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
@@ -780,9 +901,11 @@ def slice_engine(torch, dev, genome_len, max_round, screen_kernel="bitwave"):
 
 def phase_k1_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
     """Only the K1 path's slice, as phase_slices drives it: its s/round,
-    phases and state, for comparing two trees of the port."""
+    phases and state, then its profiled rounds (device time by kernel and
+    what fills a prefilter pass), for comparing two trees of the port."""
     _, _, _, _, k1 = slice_engine(torch, dev, genome_len, max_round)
     run_slice(torch, k1, "bitwave slice", max_round, MainPathInputs(()), K1_SLICE_KERNELS)
+    profile_rounds(torch, k1, "bitwave slice", PROFILED_ROUNDS["bitwave"])
 
 
 def phase_k3_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
@@ -914,7 +1037,19 @@ ROUTES = {
 }
 
 
-def kernel_line(res: Results, counts) -> list[dict]:
+def thread_build(_build) -> dict | None:
+    """ptxas's report of K1's thread build (registers, stack, spills), when
+    this process built the kernels."""
+    import ast
+
+    for line in _build.ptxas_report:
+        name, _, props = line.partition(": ")
+        if name.startswith("bitwave_kernel"):
+            return dict(ast.literal_eval(props), kernel=name)
+    return None
+
+
+def kernel_line(res: Results, counts, ptxas=None) -> list[dict]:
     """One entry per kernel counter; ms, plain_ms and bound_ms at the
     paths' variant with the most launches; launches summed over the
     paths (each path's counts were read right after it)."""
@@ -932,7 +1067,10 @@ def kernel_line(res: Results, counts) -> list[dict]:
             "launches": sum(c[k] for c in counts.values()), "max_abs_err": res.err[k],
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None, "shape": top["shape"],
+            "wrapper_ms": top["wrapper_ms"],
         })
+        if k == "bitwave_prefilter" and ptxas is not None:
+            out[-1]["ptxas"] = ptxas
     return out
 
 
@@ -948,8 +1086,8 @@ def main() -> int:
                            "synthetic shapes (phase 2 without the launch shapes), to compare "
                            "two trees of the port")
     mode.add_argument("--k1-slice", action="store_true",
-                      help="drive only the K1 path's E. coli slice (phase 3 without the "
-                           "profiled rounds), to compare two trees of the port")
+                      help="drive only the K1 path's E. coli slice and its profiled rounds "
+                           "(phase 3), to compare two trees of the port")
     mode.add_argument("--k3-slice", action="store_true",
                       help="drive only the K3 path's E. coli slice on its own store and "
                            "locate through K3 onto its contig, to compare two trees of the port")
@@ -975,6 +1113,8 @@ def main() -> int:
     built = _build.build_seconds
     log(f"[device] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"({'built' if built is not None else 'cached'}: nvcc {built or 0:.1f} s)")
+    ptxas = thread_build(_build)
+    log(f"[device] K1 thread build: {ptxas if ptxas else 'not measured (cached build)'}")
 
     one_phase = args.kernels or args.k1_slice or args.k3_slice
     if args.kernels:
@@ -998,7 +1138,7 @@ def main() -> int:
             raise AssertionError(f"kernels with no main-path inputs kept: {set(_build.KERNELS) - seen}")
         del kept, rowdp
         phase_two_devices(torch)
-        kernels = kernel_line(res, counts)
+        kernels = kernel_line(res, counts, ptxas)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     if not one_phase:

@@ -181,9 +181,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, I, P, I, P, P, I,      # a, LA, b, LB, la, lb, B
         P, P, P, I,               # early_thr, accept_min, band_tab, tab_len
         I, I, I, I,               # la_max, w_max, maxn, maxm
-        P, I, I, P, P,            # peq scratch (or null), PW, path, out, stream
+        P, I, I, I, P, P,         # warp path's peq scratch (or null), PW, path, pairs, out, stream
     ]
     lib.pb_bitwave.restype = I
+    lib.pb_bitwave_thread_smem.argtypes = [I, I, I, I]  # LA, LB, tab_len, pairs
+    lib.pb_bitwave_thread_smem.restype = ctypes.c_longlong
     lib.pb_wavefront.argtypes = [
         P, I, P, I, P, P, I,      # a, LA, b, LB, la, lb, B
         P, P, P, I,               # early_thr, accept_min, band_tab, tab_len

@@ -6,7 +6,9 @@ Pallas kernel `_kernel` with its XLA `_prep`/`_post`). The CUDA kernel
 per-pair geometry, transpose normalization, PEQ build, the column loop with
 early failure, the far-row goal, un-transpose and acceptance. Launches
 whose stripes reach WARP_MIN_WORDS words run one warp per pair, narrower
-ones (the prefilter) one thread per pair.
+ones (the prefilter) one thread per pair, THREAD_PAIRS pairs a block with
+their rows staged in shared memory (the warp path takes launches whose
+rows do not fit).
 
 For CUDA tensors the wrapper launches the kernel or raises; for CPU tensors
 it runs the plain version, align/scan.py::batch_score. Both give identical
@@ -29,6 +31,8 @@ KINDS = ("prefilter", "fullscreen", "locate")
 # ones (the prefilter's 2) one thread per pair, the only width the thread path
 # is built for (csrc/bitwave.cu); PERF.md's cutover table gives the reason
 WARP_MIN_WORDS = 3
+# pairs (threads) a thread-path block: one warp (PERF.md, `[kernels:shapes]`)
+THREAD_PAIRS = 32
 
 
 def batch_score_bitwave(
@@ -89,33 +93,40 @@ def stripe_words(w_max: int, maxm: int) -> int:
     return (2 * min(w_max, maxm - 1) + 1 + 63) // 64
 
 
-def _launch(a, la, b, lb, *, la_max, w_max, ratio, maxn, maxm, kind, path=None) -> BatchScores:
+def _launch(a, la, b, lb, *, la_max, w_max, ratio, maxn, maxm, kind, path=None,
+            pairs=THREAD_PAIRS) -> BatchScores:
     """Check the inputs, launch csrc/bitwave.cu, count the launch. `path`
-    ("thread" or "warp"; None = by WARP_MIN_WORDS) lets the tests and the
-    smoke's cutover table run the warp path on narrow stripes too."""
+    ("thread" or "warp"; None = by WARP_MIN_WORDS and whether a thread-path
+    block's rows fit in shared memory) and `pairs` (a thread-path block's)
+    let the tests and the smoke's shapes table run other shapes."""
     B, LA = a.shape
     LB = b.shape[1]
     a, la, b, lb, tab_len, early_thr, accept_min, band_tab = screen_inputs(
         a, la, b, lb, la_max, ratio
     )
     words = stripe_words(w_max, maxm)
+    lib = _build.library()
+    fits = lib.pb_bitwave_thread_smem(LA, LB, tab_len, pairs) <= SMEM_LIMIT
     if path is None:
-        path = "warp" if words >= WARP_MIN_WORDS else "thread"
-    if path not in ("thread", "warp") or (path == "thread" and words >= WARP_MIN_WORDS):
-        raise ValueError(f"no K1 {path!r} path for stripes of {words} words")
-    # the PEQ scratch: global for the thread path, shared memory for the
-    # warp path where one warp's 4 x PW words fit
+        path = "thread" if words < WARP_MIN_WORDS and fits else "warp"
+    if path not in ("thread", "warp") or (
+        path == "thread" and (words >= WARP_MIN_WORDS or not fits)
+    ):
+        raise ValueError(
+            f"no K1 {path!r} path for stripes of {words} words and rows of {LA} + {LB} codes"
+        )
+    # the warp path's PEQ scratch, where one warp's 4 x PW words do not fit
+    # in shared memory; the thread path keeps its PEQ in registers
     PW = (max(LA, LB) + 63) // 64 + 1
     peq = None
-    if path == "thread" or 32 * PW > SMEM_LIMIT:
+    if path == "warp" and 32 * PW > SMEM_LIMIT:
         peq = torch.empty((max(B, 1), 4, PW), dtype=torch.int64, device=a.device)
     out = torch.empty((6, B), dtype=torch.int32, device=a.device)
-    lib = _build.library()
     err = lib.pb_bitwave(
         a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
         early_thr.data_ptr(), accept_min.data_ptr(), band_tab.data_ptr(), tab_len,
         la_max, w_max, maxn, maxm, None if peq is None else peq.data_ptr(), PW,
-        1 if path == "thread" else 2, out.data_ptr(), _build.stream_of(a),
+        1 if path == "thread" else 2, pairs, out.data_ptr(), _build.stream_of(a),
     )
     _build.check(lib, err, "bitwave")
     _build.count(f"bitwave_{kind}")

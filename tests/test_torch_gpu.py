@@ -36,11 +36,13 @@ from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 from torch_parity import (
     WALK_W,
     batch_tensors,
+    k1_thread_edge_cases,
     overlap_cases,
     pack,
     random_cases,
     walk_batch,
     walk_edge_cases,
+    zero_band_tables,
 )
 
 pytestmark = pytest.mark.gpu
@@ -318,6 +320,138 @@ def test_bitwave_fails_at_row_eleven(cuda):
         for f in range(6):
             assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
         assert (p.dp_rows == 11).any() and not p.accept.any()
+
+
+def _thread_and_auto(args, kw, **launch):
+    """K1's thread path (forced) and the wrapper's own choice, prefilter kind."""
+    from pacbioassembly_tpu_torch.align import bitwave
+
+    lim = dict(maxn=bitwave.Constants.ALIGNER_MAXN, maxm=bitwave.Constants.ALIGNER_MAXM)
+    return [bitwave._launch(*args, kind="prefilter", path="thread", **kw, **lim, **launch),
+            batch_score_bitwave(*args, kind="prefilter", **kw)]
+
+
+@pytest.mark.parametrize("name", sorted(k1_thread_edge_cases()))
+def test_bitwave_thread_path_edges_equal_plain(cuda, name, monkeypatch):
+    """The thread path on tests/torch_parity.py's edge batches: md 0, 1
+    and 63, swapped pairs, failure at row 11, m - n = md, reads past a
+    row's width."""
+    from pacbioassembly_tpu_torch.align import bitwave, scan
+
+    A, las, Bm, lbs, kw, zero_band = k1_thread_edge_cases()[name]
+    if zero_band:
+        fake = zero_band_tables(scan.threshold_tensors)
+        monkeypatch.setattr(scan, "threshold_tensors", fake)
+        monkeypatch.setattr(bitwave, "threshold_tensors", fake)
+    args = batch_tensors(A, las, Bm, lbs, device=cuda)
+    p = batch_score(*args, **kw)
+    before = _build.LAUNCHES["bitwave_prefilter"]
+    runs = _thread_and_auto(args, kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bitwave_prefilter"] == before + 2
+    for k in runs:
+        for f in range(6):
+            assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+
+
+@pytest.mark.parametrize("B", [1, 33, 4097])
+@pytest.mark.parametrize("LB", [128, 50])  # LA = LB + W + 1: 187 and 74, not multiples of 16
+def test_bitwave_thread_path_ragged_batches_equal_plain(cuda, B, LB):
+    """Batches that end inside a block, rows whose spans start off a
+    16-byte boundary (and a batch whose first row does: a view one row
+    in), at 16, 32 and 64 pairs a block."""
+    rng = np.random.default_rng(B + LB)
+    ratio = 0.45
+    W = 1 + int(LB * ratio)
+    LA = LB + W + 1
+    n = B + 1
+    cases = overlap_cases(rng, n // 2, src_len=2 * LA, seg_lo=LB // 2, seg_hi=LB + 40, err=0.05,
+                          a_lo=LB // 3, a_hi=LA + 30)
+    cases += random_cases(rng, n - n // 2, a_hi=LA + 30, b_hi=LB + 30)
+    A, las, Bm, lbs = pack([cases[i] for i in rng.permutation(n)], LA, LB)
+    full = batch_tensors(A, las, Bm, lbs, device=cuda)
+    kw = dict(la_max=LA, w_max=W, ratio=ratio)
+    for args in (tuple(t[:B] for t in full), tuple(t[1:] for t in full)):
+        p = batch_score(*args, **kw)
+        runs = _thread_and_auto(args, kw)
+        runs += [_thread_and_auto(args, kw, pairs=pairs)[0] for pairs in (16, 64)]
+        torch.cuda.synchronize()
+        for k in runs:
+            for f in range(6):
+                assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+    if B > 1:
+        assert 0 < int(p.accept.sum()) < B
+
+
+def test_bitwave_rows_too_wide_to_stage_take_the_warp_path(cuda):
+    """Two-word stripes whose block of rows does not fit in shared memory:
+    the thread path refuses them and the wrapper sends them to the warp
+    path, equal to the plain row DP."""
+    from pacbioassembly_tpu_torch.align import bitwave
+
+    rng = np.random.default_rng(3)
+    LA = LB = 4000
+    cases = overlap_cases(rng, 6, src_len=2 * LA, seg_lo=100, seg_hi=500, err=0.01,
+                          a_lo=100, a_hi=1000)
+    cases += random_cases(rng, 4, a_hi=1000, b_hi=900)
+    A, las, Bm, lbs = pack(cases, LA, LB)
+    args = batch_tensors(A, las, Bm, lbs, device=cuda)
+    kw = dict(la_max=LA, w_max=58, ratio=0.1)
+    lim = dict(maxn=bitwave.Constants.ALIGNER_MAXN, maxm=bitwave.Constants.ALIGNER_MAXM)
+    assert bitwave.stripe_words(58, lim["maxm"]) == 2
+    with pytest.raises(ValueError, match="no K1 'thread' path"):
+        bitwave._launch(*args, kind="fullscreen", path="thread", **kw, **lim)
+    k = batch_score_bitwave(*args, **kw)
+    p = batch_score(*args, **kw)
+    torch.cuda.synchronize()
+    for f in range(6):
+        assert torch.equal(k[f].to(torch.int32), p[f].to(torch.int32)), f
+    assert 0 < int(p.accept.sum()) < len(las)
+
+
+def test_bitwave_thread_path_takes_no_peq_scratch(cuda, monkeypatch):
+    """A thread-path launch allocates only its output, and pb_bitwave
+    refuses a PEQ scratch pointer on path 1 (the thread path)."""
+    from pacbioassembly_tpu_torch.align import bitwave
+
+    A, las, Bm, lbs, kw, _ = k1_thread_edge_cases()["swap"]
+    args = batch_tensors(A, las, Bm, lbs, device=cuda)
+    B = len(las)
+    bitwave._launch(*args, kind="prefilter", path="thread", **kw,
+                    maxn=bitwave.Constants.ALIGNER_MAXN, maxm=bitwave.Constants.ALIGNER_MAXM)
+    shapes = []
+    real_empty = torch.empty
+
+    def spy(*size, **k):
+        shapes.append(tuple(size[0]) if len(size) == 1 else size)
+        return real_empty(*size, **k)
+
+    monkeypatch.setattr(torch, "empty", spy)
+    k = batch_score_bitwave(*args, kind="prefilter", **kw)
+    monkeypatch.undo()
+    assert shapes == [(6, B)]
+
+    a, la, b, lb, tab_len, et, am, bt = bitwave.screen_inputs(*args, kw["la_max"], kw["ratio"])
+    LA, LB = a.shape[1], b.shape[1]
+    PW = (max(LA, LB) + 63) // 64 + 1
+    scratch = torch.zeros((B, 4, PW), dtype=torch.int64, device=cuda)
+    out = torch.full((6, B), -7, dtype=torch.int32, device=cuda)
+    lib = _build.library()
+
+    def launch(peq):
+        return lib.pb_bitwave(
+            a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
+            et.data_ptr(), am.data_ptr(), bt.data_ptr(), tab_len, kw["la_max"], kw["w_max"],
+            bitwave.Constants.ALIGNER_MAXN, bitwave.Constants.ALIGNER_MAXM, peq, PW, 1,
+            bitwave.THREAD_PAIRS, out.data_ptr(), _build.stream_of(a))
+
+    assert launch(scratch.data_ptr()) == 1  # cudaErrorInvalidValue, nothing launched
+    torch.cuda.synchronize()
+    assert (out == -7).all()
+    assert launch(None) == 0
+    torch.cuda.synchronize()
+    for f in range(6):
+        assert torch.equal(out[f], k[f].to(torch.int32)), f
 
 
 def test_elect_on_card_equals_cpu(cuda):

@@ -1,5 +1,5 @@
-"""Numpy models of how the CUDA kernels K2 (csrc/tbwave.cu), K1's warp path
-(csrc/bitwave.cu, bitwave_warp_kernel), K3 (csrc/wavefront.cu) and W
+"""Numpy models of how the CUDA kernels K2 (csrc/tbwave.cu), K1's warp and
+thread paths (csrc/bitwave.cu), K3 (csrc/wavefront.cu) and W
 (csrc/walk.cu) split their work across lanes, threads and warps, held
 against the port's plain versions, which the other
 tests hold equal to the JAX package. They rehearse the kernels' logic where
@@ -28,6 +28,13 @@ versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
       row blocks copied into a ring ahead of the walk and loaded at once
       when the cell leaves its tile, gives
       align/tbwave.py::walk_parents_plain's ops, vals and nedit.
+  (f) K1's thread path (bitwave_kernel): a two-word register stripe, a
+      sliding 128-bit window per letter in place of the PEQ (column 1's
+      from the row's first 128 bytes at its shared-memory pitch, four a
+      32-bit word, masked past the row), a column's early-failure test run
+      after the next column's step, and the far-row goal from the two
+      words shifted into one: every window equals the full PEQ's at every
+      column, and the fields equal align/scan.py::batch_score's.
 """
 
 import numpy as np
@@ -51,12 +58,15 @@ from pacbioassembly_tpu_torch.config import Constants
 from test_scan import make_cases, pack
 from test_torch_tbwave import _multi_block_cases
 from torch_parity import (
+    PREFILTER,
     WALK_W,
     batch_tensors,
+    k1_thread_edge_cases,
     overlap_cases,
     random_cases,
     walk_batch,
     walk_edge_cases,
+    zero_band_tables,
 )
 
 torch.set_num_threads(1)
@@ -707,3 +717,210 @@ def test_w_tiled_walk_gives_the_plain_walk_from_screened_goals():
             (pk, args[2], lb_dp, md, sc.matlen_a, sc.matlen_b, sc.accept), E, W)
         assert (nedit > 200).any() and int(sc.accept.sum()) > 5
         assert steps.sum() * 4 < nedit.sum() and misses.max() <= 2  # runs of MATCH; few misses
+
+
+# ------------------------------------------------------ (f) K1 thread path
+
+M64 = (1 << 64) - 1
+
+
+def _peq_window(P, PW, s):
+    """Bits [s, s + 64) of the PW-word bit vector P (a Python int), zero
+    outside [0, 64 PW): the parent design's global-PEQ read."""
+    P &= (1 << (64 * PW)) - 1
+    return (P >> s) & M64 if s >= 0 else (P << -s) & M64
+
+
+def _staged(row, garbage=0xFF):
+    """A row as the thread path stages it: its codes, then filler up to
+    its pitch (an odd number of 32-bit words) and on to 128 bytes (the
+    next rows or the pad after the last, which the first windows read and
+    mask off)."""
+    pitch = 4 * (((len(row) + 3) // 4) | 1)
+    return np.concatenate([row, np.full(max(pitch, 128) - len(row), garbage, np.uint8)])
+
+
+def k1_thread_model(A, las, Bm, lbs, *, la_max, w_max, ratio, band_tab=None,
+                    maxn=Constants.ALIGNER_MAXN, maxm=Constants.ALIGNER_MAXM):
+    """BatchScores fields as bitwave_kernel (the thread path) computes them,
+    one pair at a time, checking every letter window against the full PEQ
+    at every column. `band_tab` replaces the table's md values."""
+    B, LA = A.shape
+    LB = Bm.shape[1]
+    tab_len = max(la_max, LB, LA) + 1
+    early_thr, accept_min, bt = scan._threshold_tables(ratio, tab_len)
+    if band_tab is not None:
+        bt = band_tab
+    assert 2 * min(w_max, maxm - 1) + 1 <= 128  # 2 words a stripe at most
+    PW = (max(LA, LB) + 63) // 64 + 1
+    rows = []
+    for q in range(B):
+        la, lb = int(las[q]), int(lbs[q])
+        cond = lb >= la
+        md = int(bt[min(max(la if cond else lb, 0), tab_len)])
+        len_a = la if cond else min(la, lb + md)
+        len_b = min(lb, la + md) if cond else lb
+        res = [0, INF, 0, 0, -1, 0]
+        if not (len_a < maxn + maxm and md < maxm and md <= w_max and len_a <= la_max):
+            rows.append(res)
+            continue
+        swap = len_a > len_b
+        n, m = min(len_a, len_b), max(len_a, len_b)
+        ra, rb = _staged(A[q]), _staged(Bm[q])
+        ka, kb = (rb, ra) if swap else (ra, rb)
+        ka_last, kb_last = (LB - 1, LA - 1) if swap else (LA - 1, LB - 1)
+
+        def code(row, t, last):
+            return int(row[min(t, last)]) & 3
+
+        # the full PEQ, for the window check: bit t of letter c = (kb[t] == c), t < m
+        P = [sum(1 << t for t in range(m) if code(kb, t, kb_last) == c) for c in range(4)]
+        # column 1's windows: the first 128 bytes, four a word split into
+        # their two bit planes, masked to codes t < lim; past the row's
+        # width its last code, up to m; shifted up by md
+        lim = min(m, kb_last + 1, 128)
+        win = [0, 0, 0, 0]
+        for k in range(32):
+            lo = [int(v) & 1 for v in kb[4 * k : 4 * k + 4]]
+            hi = [(int(v) >> 1) & 1 for v in kb[4 * k : 4 * k + 4]]
+            for c, (want_lo, want_hi) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
+                nib = sum(1 << u for u in range(4) if (lo[u], hi[u]) == (want_lo, want_hi))
+                win[c] |= nib << (4 * k)
+        tail = ((1 << min(m, 128)) - 1) & ~((1 << min(kb_last + 1, 128)) - 1)
+        c_last = code(kb, max(kb_last, 0), kb_last)
+        win = [(((w & ((1 << lim) - 1)) | (tail if c == c_last else 0)) << md) & ((1 << 128) - 1)
+               for c, w in enumerate(win)]
+
+        S = 2 * md + 1
+        lastmask = (1 << (S & 63)) - 1
+        mask0, mask1 = (M64, lastmask) if S > 64 else (lastmask, 0)
+        top = 1 << ((S - 1) & 63)
+        top0, top1 = (0, top) if S > 64 else (top, 0)
+        hbit = 1 << (md - 1) if md >= 1 else 0
+        vbit = 1 << md
+        vp0, vp1, vn0, vn1 = mask0, mask1, 0, 0
+        bb = 1 << (md - 1) if md >= 1 else 0  # the border row's bit, column 1
+        Sc, pending, failed, fail_i = 0, 0, False, 0
+        c = code(ka, 0, ka_last)
+        t_in = 128 - md
+        c_in = code(kb, t_in, kb_last) if t_in < m else 4
+        for i in range(1, n + 1):
+            t0 = i - md - 1
+            for x in range(4):
+                assert win[x] & M64 == _peq_window(P[x], PW, t0), (q, i, x)
+                assert win[x] >> 64 == _peq_window(P[x], PW, t0 + 64), (q, i, x)
+            pm0, pm1 = win[c] & M64 & mask0, (win[c] >> 64) & mask1
+            win = [(w >> 1) | (1 << 127 if c_in == x else 0) for x, w in enumerate(win)]
+            c = code(ka, i, ka_last)
+            t_in += 1
+            c_in = code(kb, t_in, kb_last) if t_in < m else 4
+
+            # VP, VN and the top bit lie inside the masks: no mask on VPp, VNp
+            assert vp0 <= mask0 and vp1 <= mask1 and vn0 <= mask0 and vn1 <= mask1
+            vpp0 = (vp0 >> 1) | ((vp1 << 63) & M64) | top0
+            vpp1 = (vp1 >> 1) | top1
+            vnp0 = (vn0 >> 1) | ((vn1 << 63) & M64)
+            vnp1 = vn1 >> 1
+            x0, x1 = pm0 & vpp0, pm1 & vpp1
+            total = ((x1 << 64) | x0) + ((vpp1 << 64) | vpp0)  # one 128-bit add
+            xh0 = ((total & M64) ^ vpp0) | pm0
+            xh1 = (((total >> 64) & M64) ^ vpp1) | pm1
+            ph0, mh0 = ((vnp0 | (~(xh0 | vpp0) & M64)) & mask0) | bb, vpp0 & xh0 & ~bb & M64
+            ph1, mh1 = (vnp1 | (~(xh1 | vpp1) & M64)) & mask1, vpp1 & xh1
+            bb >>= 1
+            phs0, mhs0 = (ph0 << 1) & mask0, (mh0 << 1) & mask0
+            phs1 = ((ph1 << 1) | (ph0 >> 63)) & mask1
+            mhs1 = ((mh1 << 1) | (mh0 >> 63)) & mask1
+            xv0, xv1 = pm0 | vnp0, pm1 | vnp1
+            vp0, vn0 = (mhs0 | (~(xv0 | phs0) & M64)) & mask0, phs0 & xv0
+            vp1, vn1 = (mhs1 | (~(xv1 | phs1) & M64)) & mask1, phs1 & xv1
+            # column i - 1's test runs after column i's step, as in the kernel
+            Sc += pending
+            if i > 11 and Sc > early_thr[i - 1]:
+                failed, fail_i = True, i - 1
+                break
+            pending = (bool(ph0 & hbit) - bool(mh0 & hbit)) + (bool(vp0 & vbit) - bool(vn0 & vbit))
+        if not failed:  # the last column's test
+            Sc += pending
+            if n > 10 and Sc > early_thr[n]:
+                failed, fail_i = True, n
+        if not failed and n >= 1:
+            # the bits md+1 .. 2md of the two words, shifted into one, as
+            # the kernel shifts: by md, then by 1
+            lo = (vp0 >> md) | ((((vp1 << 1) & M64) << (63 - md)) & M64)
+            dp = (lo >> 1) | (((vp1 >> md) << 63) & M64)
+            lo = (vn0 >> md) | ((((vn1 << 1) & M64) << (63 - md)) & M64)
+            dn = (lo >> 1) | (((vn1 >> md) << 63) & M64)
+            val = best = Sc
+            best_j = n
+            for k in range(m - n):
+                val += ((dp >> k) & 1) - ((dn >> k) & 1)
+                if val < best:
+                    best, best_j = val, n + 1 + k
+            ma, mb = (best_j, n) if swap else (n, best_j)
+            if mb >= accept_min[min(max(len_b, 0), tab_len)] and best < INF:
+                res[:5] = [1, best, ma, mb, -1 if swap else Sc]
+        res[5] = fail_i if failed else len_a
+        rows.append(res)
+    return np.array(rows, np.int64).T
+
+
+def _thread_geometry(las, lbs, kw, zero_band):
+    """(md, len_a, len_b, ok) per pair, as the kernels derive them."""
+    LA = kw["la_max"]
+    tab_len = max(LA, 200) + 1
+    _, _, bt = scan._threshold_tables(kw["ratio"], tab_len)
+    if zero_band:
+        bt = np.zeros_like(bt)
+    las, lbs = las.astype(np.int64), lbs.astype(np.int64)
+    md = bt[np.minimum(np.where(lbs >= las, las, lbs), tab_len)].astype(np.int64)
+    len_a = np.where(lbs >= las, las, np.minimum(las, lbs + md))
+    len_b = np.where(lbs >= las, np.minimum(lbs, las + md), lbs)
+    return md, len_a, len_b, (md <= kw["w_max"])
+
+
+def test_k1_thread_model_gives_plain_scores_at_the_prefilter_geometry():
+    """The prefilter launch (LA=187, LB=128, W=58, R=0.45): overlaps at 3%
+    and 15% error and unrelated pairs."""
+    rng = np.random.default_rng(12)
+    cases = overlap_cases(rng, 12, src_len=400, seg_lo=128, seg_hi=300, err=0.03, a_lo=60, a_hi=400)
+    cases += overlap_cases(rng, 12, src_len=400, seg_lo=128, seg_hi=300, err=0.15, a_lo=60, a_hi=400)
+    cases += random_cases(rng, 12, a_hi=400, b_hi=300)
+    A, las, Bm, lbs = pack([(a[:187], b[:128]) for a, b in cases], 187, 128)
+    plain = scan.batch_score(*batch_tensors(A, las, Bm, lbs), **PREFILTER)
+    model = k1_thread_model(A, las, Bm, lbs, **PREFILTER)
+    for f, name in enumerate(plain._fields):
+        np.testing.assert_array_equal(model[f], plain[f].numpy().astype(np.int64), name)
+    acc = plain.accept.numpy()
+    assert 8 <= acc.sum() < len(acc)
+    assert (acc & (plain.diag_cost.numpy() == -1)).any()  # an accepted swapped pair
+
+
+@pytest.mark.parametrize("name", sorted(k1_thread_edge_cases()))
+def test_k1_thread_model_edges_give_plain_scores(name, monkeypatch):
+    A, las, Bm, lbs, kw, zero_band = k1_thread_edge_cases()[name]
+    if zero_band:
+        monkeypatch.setattr(scan, "threshold_tensors", zero_band_tables(scan.threshold_tensors))
+    plain = scan.batch_score(*batch_tensors(A, las, Bm, lbs), **kw)
+    tab_len = max(kw["la_max"], Bm.shape[1], A.shape[1]) + 1
+    band = np.zeros(tab_len + 1, np.int32) if zero_band else None
+    model = k1_thread_model(A, las, Bm, lbs, band_tab=band, **kw)
+    for f, fname in enumerate(plain._fields):
+        np.testing.assert_array_equal(model[f], plain[f].numpy().astype(np.int64), fname)
+    # the batch reaches its edge
+    md, len_a, len_b, ok = _thread_geometry(las, lbs, kw, zero_band)
+    acc, rows = plain.accept.numpy(), plain.dp_rows.numpy()
+    swapped = len_a > len_b
+    want = {
+        "md0": (md == 0).all() and acc.any() and (rows == 11).any(),
+        "md1": (md == 1).all() and (np.minimum(las, lbs) <= 1).sum() >= 6 and acc.any(),
+        "md63": (ok & (md == 63) & swapped & acc).any() and (ok & (md == 63) & ~swapped & acc).any()
+        and (~ok).sum() == 2,
+        "swap": (acc & swapped).sum() >= 3 and (acc & ~swapped).sum() >= 3,
+        "row11": (rows == 11).sum() >= 12 and not acc.any(),
+        "m_minus_n": (acc & (np.abs(len_a - len_b) == md) & swapped).any()
+        and (acc & (len_b - len_a == md)).any(),
+        "past_width": (acc & (len_b > Bm.shape[1]) & ~swapped).any()
+        and (acc & (np.minimum(len_a, len_b) > Bm.shape[1]) & swapped).any(),
+    }
+    assert want[name], (md, len_a, len_b, acc, rows)

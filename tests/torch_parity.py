@@ -158,3 +158,82 @@ def walk_batch(cases, device="cpu"):
     acc = np.array(cols[6], bool)
     out = tuple(T(x).to(device) for x in (planes, bs, *vecs, acc))
     return out, Es.pop()
+
+
+# --------------------------------------------- K1 thread path edge batches
+
+PREFILTER = dict(la_max=187, w_max=58, ratio=0.45)  # LA = 187, LB = 128
+
+
+def _noisy(rng, x, err):
+    """x with substitutions at rate err."""
+    y = x.copy()
+    sub = rng.random(len(y)) < err
+    y[sub] = (y[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    return y
+
+
+def zero_band_tables(real):
+    """A stand-in for align/scan.py::threshold_tensors whose band table is
+    all zeros (md = 0 for every pair)."""
+
+    def fake(ratio, tab_len, device):
+        et, am, bt = real(ratio, tab_len, device)
+        return et, am, torch.zeros_like(bt)
+
+    return fake
+
+
+def k1_thread_edge_cases(seed=0):
+    """Batches at 2 words a stripe or fewer (K1's thread path and its numpy
+    model), {name: (A, la, B, lb, kwargs, zero_band)}; zero_band asks for
+    a band table of zeros (md = 0, S = 1: the threshold tables give md >= 1).
+
+      md0         every pair at md = 0: identical, noisy and unrelated
+      md1         la or lb of 0 or 1 (md = 1 from the table)
+      md63        W = 63: pairs at md = 63 (S = 127, both words full),
+                  swapped and not, and pairs at md = 64 (size-rejected)
+      swap        overlaps with len_a > len_b (transposed) and not
+      row11       unrelated pairs, most failing at row 11, the first row
+                  that can fail
+      m_minus_n   len_b = la + md (and len_a = lb + md): the far-row goal
+                  over all md rows past n
+      past_width  lengths past b's width (LB = 32): the row sequence and,
+                  transposed, the column sequence read past the row
+    """
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def add(name, cases, LA, LB, kw, zero_band=False, lbs=None):
+        A, las, Bm, lb = pack(cases, LA, LB)
+        if lbs is not None:
+            lb = np.asarray(lbs, np.int32)
+        out[name] = (A, las, Bm, lb, dict(kw, la_max=LA), zero_band)
+
+    x = rng.integers(0, 4, 400).astype(np.uint8)
+    y = rng.integers(0, 4, 400).astype(np.uint8)
+    add("md0", [(x[:120], x[:128]), (x[:128], _noisy(rng, x[:128], 0.03)),
+                (_noisy(rng, x[:90], 0.08), x[:100]), (x[:128], y[:128]), (x[:5], y[:5]),
+                (x[:1], x[:1])], 187, 128, PREFILTER, zero_band=True)
+    add("md1", [(x[:0], x[:5]), (x[:5], x[:0]), (x[:0], x[:0]), (x[:1], x[:1]),
+                (x[:1], y[:3]), (x[:3], x[:1]), (x[:2], x[:2]), (x[:2], y[:2]),
+                (x[:2], x[:30])], 187, 128, PREFILTER)
+    w63 = dict(w_max=63, ratio=0.45)
+    add("md63", [(x[:138], _noisy(rng, x[:150], 0.02)), (_noisy(rng, x[:160], 0.02), x[:139]),
+                 (x[:139], x[:139]), (x[:138], y[:200]), (x[:140], x[:145]),
+                 (x[:150], x[:140])], 200, 200, w63)
+    cases = overlap_cases(rng, 6, src_len=300, seg_lo=60, seg_hi=128, err=0.05, a_lo=40, a_hi=187)
+    add("swap", cases + [(b_, a_) for a_, b_ in cases]
+        + [(x[:110], x[:90]), (x[:90], x[:110]), (x[:128], _noisy(rng, x[:100], 0.05))],
+        187, 128, PREFILTER)
+    add("row11", [(rng.integers(0, 4, 128).astype(np.uint8), rng.integers(0, 4, 128).astype(np.uint8))
+                  for _ in range(24)], 187, 128, PREFILTER)
+    add("m_minus_n", [(x[:80], x[:128]), (x[:80], _noisy(rng, x[:128], 0.05)),
+                      (x[:160], x[:80]), (_noisy(rng, x[:180], 0.05), x[:70]),
+                      (x[:60], y[:128])], 187, 128, PREFILTER)
+    # b rows 32 wide with lengths up to 60: len_b past the width (not
+    # swapped) and n = len_b past it (swapped)
+    add("past_width", [(x[:40], x[:32]), (x[:100], x[:32]), (x[:20], x[:32]),
+                       (x[:60], _noisy(rng, x[:32], 0.05)), (x[:32], x[:32])], 100, 32,
+        dict(w_max=58, ratio=0.45), lbs=[60, 60, 50, 45, 32])
+    return out
