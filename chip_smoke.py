@@ -4,7 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels [--port DIR]    # only the kernels against their plain versions (2)
     python3 chip_smoke.py --k1-slice [--port DIR]   # only the K1 slice of 3 (profiled rounds too), of DIR's port
+    python3 chip_smoke.py --k1-slice --parallel-commit   # the same with the two-thread host commit
     python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
+    python3 chip_smoke.py --contigs-path [--port DIR]   # only the multi-contig path of 8
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
@@ -43,12 +45,29 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      it did not) mapped onto its contig, pattern 1 of seeds.txt, R=0.15,
      through K3 and through K1: equal TSVs, the first 100 reads equal the
      sequential host loop, residual error and wall time of each;
-  6. every kernel variant the paths of 3-5 launched, held against its plain
-     version on the inputs of its first launches, at the paths' own shapes,
-     and K3's variants at each of its launch shapes equal to the wrapper's
-     choice on those inputs;
+  6. every kernel variant the paths of 3-5 and 8 launched, held against its
+     plain version on the inputs of its first launches, at the paths' own
+     shapes, and K3's variants at each of its launch shapes equal to the
+     wrapper's choice on those inputs (8 runs before 6 and 7);
   7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
-     contig bytes, votes and surviving reads.
+     contig bytes, votes and surviving reads;
+  8. multi-contig assembly through the CLI (`assemble --engine batch
+     --device cuda --contigs N`, stdout and stderr captured), each contig
+     run to its natural end, on (a) 300 kb at 30x, mean read 2,500, 3%
+     uniform error, seed 11, 8 contigs: per contig its length, reads,
+     rounds, wall time, s/round p50/p95 and the card's allocated memory
+     after it (which must not grow), the dedupe's dropped contigs, the kept
+     contigs' genome fraction, N50 and misassemblies (tools/coverage.py;
+     gates: fraction >= 0.9, no misassembly) and the largest contig's
+     residual error against CCS-like reads on the card; (b) 150 kb at 30x,
+     15% CLR-profile error, 4 contigs, the same per contig, then every
+     surviving read accounted for on the card (tools/postprocess.py::
+     classify_reads; gate: the four categories sum to the survivors). K1
+     (prefilter, full screen, locate), K2 and W must have launched, no
+     plain version; phase 6 replays this path's variants too. Then (c)
+     the two-segment store of tests/test_batch.py::test_multi_contig_assembly,
+     4 contigs, without and with dedupe, on cuda and on cpu: equal
+     ContigResults and surviving reads.
 
 Kernel times are CUDA events: a kernel's is the min over fresh inputs of
 its wrapper's launches queued behind a spin kernel, so that the host's
@@ -69,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -540,6 +560,7 @@ class MainPathInputs:
         self.real = [getattr(m, n) for m, n in self.slots]
         self.calls: dict = {}   # (kernel, geometry) -> {B: launches}
         self.inputs: dict = {}  # (kernel, geometry, B) -> [(args, kw), ...]
+        self.nbytes = 0         # device bytes the kept clones hold
 
     def _keep(self, kernel, geom, args, kw):
         if not kernel.startswith(self.kernels):
@@ -550,6 +571,7 @@ class MainPathInputs:
         kept = self.inputs.setdefault((kernel, geom, B), [])
         if len(kept) < self.KEEP:
             kept.append((tuple(x.clone() for x in args), dict(kw)))
+            self.nbytes += sum(x.numel() * x.element_size() for x in args)
 
     def install(self):
         score_k1, score_k3, parents, walk = self.real
@@ -633,19 +655,25 @@ def phase_main_path_kernels(torch, res, kept: MainPathInputs, path):
     return seen
 
 
-def simulate_store(genome_len, coverage, mean_read_len, error, seed, max_read_len=19_000):
+def simulate_store(genome_len, coverage, mean_read_len, error, seed, max_read_len=19_000,
+                   profile="uniform", path=None):
+    """(genome, ReadStore) of simulated reads; with `path`, the records are
+    also written there."""
     from pacbioassembly_tpu_torch.assemble import ReadStore
     from pacbioassembly_tpu_torch.codec import binary_io
-    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate, split_error_rate
 
+    sub, ins, dele = split_error_rate(error, profile)
     sim = SimConfig(
         genome_len=genome_len, coverage=coverage, mean_read_len=mean_read_len,
-        max_read_len=max_read_len, sub_rate=error / 3, ins_rate=error / 3,
-        del_rate=error / 3, seed=seed,
+        max_read_len=max_read_len, sub_rate=sub, ins_rate=ins, del_rate=dele, seed=seed,
     )
     genome, reads, _ = simulate(sim)
     buf = io.BytesIO()
     binary_io.write_records(buf, reads)
+    if path is not None:
+        with open(path, "wb") as fh:
+            fh.write(buf.getvalue())
     return genome, ReadStore(np.frombuffer(buf.getvalue(), dtype=np.uint8))
 
 
@@ -873,7 +901,7 @@ K1_SLICE_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
 K3_SLICE_KERNELS = ("rowdp_prefilter", "rowdp_fullscreen", "tbwave", "walk")
 
 
-def slice_engine(torch, dev, genome_len, max_round, screen_kernel="bitwave"):
+def slice_engine(torch, dev, genome_len, max_round, screen_kernel="bitwave", parallel_commit=False):
     """The E. coli-scale read store and an engine on it (the K1 path's by
     default); returns (genome, reads, patterns, cfg, engine)."""
     from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
@@ -886,7 +914,7 @@ def slice_engine(torch, dev, genome_len, max_round, screen_kernel="bitwave"):
     patterns = dna.load_patterns(SEEDS)
     cfg = AssemblyConfig(
         engine="batch", rng_seed=7, pattern_schedule="roundrobin", max_round=max_round,
-        max_seq_len=len(genome) + 500_000,
+        max_seq_len=len(genome) + 500_000, parallel_commit=parallel_commit,
     )
     t0 = time.perf_counter()
     asm = BatchAssembler(cfg, reads, patterns, device=dev, screen_kernel=screen_kernel)
@@ -899,13 +927,53 @@ def slice_engine(torch, dev, genome_len, max_round, screen_kernel="bitwave"):
     return genome, reads, patterns, cfg, asm
 
 
-def phase_k1_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
+def state_digest(asm) -> str:
+    """sha256 over state_of(asm): contig bytes, votes, surviving reads and
+    RoundStats, to compare two processes' runs."""
+    st = state_of(asm)
+    h = hashlib.sha256(json.dumps([st["history"], st["surviving"]]).encode())
+    for a in [st["contig"]] + st["votes"]:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def counted_splits():
+    """Counts the two-thread host commits (assemble/batch.py's
+    ThreadPoolExecutor) while the block runs; yields the count's list."""
+    from pacbioassembly_tpu_torch.assemble import batch
+
+    real = batch.ThreadPoolExecutor
+    splits = []
+
+    class Counted(real):
+        def __init__(self, *a, **k):
+            splits.append(1)
+            super().__init__(*a, **k)
+
+    batch.ThreadPoolExecutor = Counted
+    try:
+        yield splits
+    finally:
+        batch.ThreadPoolExecutor = real
+
+
+def phase_k1_slice_only(torch, dev, genome_len=4_600_000, max_round=60, parallel_commit=False):
     """Only the K1 path's slice, as phase_slices drives it: its s/round,
-    phases and state, then its profiled rounds (device time by kernel and
-    what fills a prefilter pass), for comparing two trees of the port."""
-    _, _, _, _, k1 = slice_engine(torch, dev, genome_len, max_round)
-    run_slice(torch, k1, "bitwave slice", max_round, MainPathInputs(()), K1_SLICE_KERNELS)
-    profile_rounds(torch, k1, "bitwave slice", PROFILED_ROUNDS["bitwave"])
+    phases and state (and its digest), then its profiled rounds (device
+    time by kernel and what fills a prefilter pass), for comparing two
+    trees of the port, or the serial host commit with the two-thread one
+    (`parallel_commit`; the count of rounds that split is printed)."""
+    name = "bitwave slice" + (", parallel commit" if parallel_commit else "")
+    _, _, _, _, k1 = slice_engine(torch, dev, genome_len, max_round,
+                                  parallel_commit=parallel_commit)
+    # (a tree from before the split was ported has no pool to count)
+    with counted_splits() if parallel_commit else contextlib.nullcontext([]) as splits:
+        run_slice(torch, k1, name, max_round, MainPathInputs(()), K1_SLICE_KERNELS)
+    log(f"[{name}] state at round {k1.nround}: contig {k1.ref.length()} bp, "
+        f"{len(k1.reads) - len(k1.surviving)} reads consumed, digest {state_digest(k1)}; "
+        f"the host commit split in two threads in {len(splits)} of {k1.nround} rounds")
+    profile_rounds(torch, k1, name, PROFILED_ROUNDS["bitwave"])
 
 
 def phase_k3_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
@@ -1029,6 +1097,192 @@ def phase_two_devices(torch):
     log("[two-devices] contig bytes, sel/sup/total and surviving reads equal")
 
 
+# the multi-contig path's kernels, and its two regimes: (name, genome length,
+# error, error profile, contigs); the E. coli slice's widths (30x, mean read
+# 2,500, seed 11, rng_seed 7), the genome cut from 4.6 Mb for time
+CONTIGS_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "bitwave_locate", "tbwave", "walk")
+CONTIG_REGIMES = (("3pct", 300_000, 0.03, "uniform", 8), ("15pct-clr", 150_000, 0.15, "clr", 4))
+CONTIG_LINE = re.compile(r"=== contig (\d+): (\d+) bp from (\d+) reads in (\d+) rounds")
+
+
+@contextlib.contextmanager
+def contig_spy(torch, kept):
+    """While the block runs: per engine run (one contig) its wall time and
+    the card's allocated memory after it, less what `kept` holds; and
+    assemble_contigs' result (contigs, surviving reads)."""
+    from pacbioassembly_tpu_torch.assemble import batch
+
+    real_run, real_contigs = batch.BatchAssembler.run, batch.assemble_contigs
+    runs, result = [], {}
+
+    def run(self, out=None, log=None):
+        t0 = time.perf_counter()
+        ref = real_run(self, out=out, log=log)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, torch.cuda.memory_allocated() - kept.nbytes))
+        return ref
+
+    def assemble_contigs(*a, **k):
+        result["out"] = real_contigs(*a, **k)
+        return result["out"]
+
+    batch.BatchAssembler.run, batch.assemble_contigs = run, assemble_contigs
+    try:
+        yield runs, result
+    finally:
+        batch.BatchAssembler.run, batch.assemble_contigs = real_run, real_contigs
+
+
+def contigs_regime(torch, dev, kept, tmp, name, genome_len, error, profile, n_contigs):
+    """One regime of the multi-contig path through the CLI, scored; returns
+    a summary dict."""
+    from pacbioassembly_tpu_torch.align.screen import ladder_size
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.tools import cli, coverage, locate, postprocess
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+
+    tag = f"contigs:{name}"
+    path = os.path.join(tmp, f"{name}.bin")
+    t0 = time.perf_counter()
+    genome, reads = simulate_store(genome_len, 30.0, 2500, error, 11, profile=profile, path=path)
+    log(f"[{tag}] simulated {genome_len / 1e3:.0f} kb @ 30x, {error:.0%} {profile} error: "
+        f"{len(reads)} reads in {time.perf_counter() - t0:.1f} s")
+    metrics = os.path.join(tmp, f"{name}.jsonl")
+    argv = ["assemble", path, SEEDS, "--engine", "batch", "--device", str(dev),
+            "--schedule", "roundrobin", "--rng-seed", "7", "--contigs", str(n_contigs),
+            "--metrics", metrics]
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contig_spy(torch, kept) as (runs, result), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[{tag}] the CLI exited {rc}: {err.getvalue()[-2000:]}")
+    lines = out.getvalue().splitlines()
+    kept_codes = [dna.text_to_codes(x) for x in lines[1::2]]
+    contigs, surviving = result["out"]
+    if len(lines) != 2 * len(contigs) or any(
+            not h.startswith(f">contig_{i} length={len(c.codes)} reads={c.nreads} rounds={c.nrounds}")
+            or not np.array_equal(k, c.codes)
+            for i, (h, k, c) in enumerate(zip(lines[0::2], kept_codes, contigs))):
+        raise AssertionError(f"[{tag}] the CLI's FASTA differs from assemble_contigs' result")
+    errs = err.getvalue().splitlines()
+    built = [tuple(int(x) for x in m.groups()) for m in map(CONTIG_LINE.match, errs) if m]
+    with open(metrics) as fh:
+        recs = [json.loads(line) for line in fh]
+    round_s = []
+    for r in recs:
+        if r["event"] == "run_start":
+            round_s.append([])
+        elif r["event"] == "round":
+            round_s[-1].append(r["round_s"])
+    if not (len(built) == len(runs) == len(round_s) >= 1):
+        raise AssertionError(f"[{tag}] {len(built)} contigs logged, {len(runs)} engine runs, "
+                             f"{len(round_s)} metrics segments")
+    for (ci, bp, nreads, nrounds), (w, mem), rs in zip(built, runs, round_s):
+        log(f"[{tag}] contig {ci}: {bp} bp from {nreads} reads in {nrounds} rounds, {w:.2f} s; "
+            f"s/round p50 {np.percentile(rs, 50):.4f} p95 {np.percentile(rs, 95):.4f}; "
+            f"card memory allocated after it {mem / 2**20:.1f} MiB")
+    mems = [m for _, m in runs]
+    window = 2 * ladder_size(max(bp for _, bp, _, _ in built), 8192)
+    if max(mems) > mems[0] + window:
+        raise AssertionError(f"[{tag}] the card's allocated memory grew from contig to contig: {mems}")
+    dropped = [ln[4:] for ln in errs if ln.startswith("=== dropping")]
+    log(f"[{tag}] {len(built)} contigs built, {len(contigs)} kept, in {wall:.1f} s; "
+        f"dedupe dropped {len(dropped)}: {dropped}; {errs[-1]}")
+    t0 = time.perf_counter()
+    ev = coverage.evaluate_assembly(genome, kept_codes)
+    log(f"[{tag}] evaluate_assembly ({time.perf_counter() - t0:.2f} s): genome fraction "
+        f"{ev['genome_fraction']}, N50 {ev['n50']}, NG50 {ev['ng50']}, misassemblies "
+        f"{ev['misassemblies']}, max break {ev['max_break']}")
+    summary = {"contigs": len(contigs), "fraction": ev["genome_fraction"],
+               "misassemblies": ev["misassemblies"], "surviving": len(surviving)}
+    pattern = dna.load_patterns(SEEDS)[0]
+    if name == "3pct":
+        if not contigs or ev["genome_fraction"] < 0.9 or ev["misassemblies"] != 0:
+            raise AssertionError(f"[{tag}] {len(contigs)} contigs, genome fraction "
+                                 f"{ev['genome_fraction']}, {ev['misassemblies']} misassemblies")
+        # the JAX runner's residual: CCS-like 1%-error reads at 2x (benchmarks/ecoli_scale.py)
+        ccs = SimConfig(genome_len=len(genome), coverage=2.0, mean_read_len=2500,
+                        sub_rate=0.004, ins_rate=0.003, del_rate=0.003, seed=12)
+        _, ccs_reads, _ = simulate(ccs, genome=genome)
+        largest = max(kept_codes, key=len)
+        t0 = time.perf_counter()
+        q = locate.residual_error(largest, pattern, ccs_reads, 0.15, device=dev)
+        log(f"[{tag}] residual error of the largest contig ({len(largest)} bp) on the card: "
+            f"{q['residual_error']} ({q['mapped']} of {q['total']} CCS-like reads mapped, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        summary["residual"] = q["residual_error"]
+    else:
+        t0 = time.perf_counter()
+        acct = postprocess.classify_reads(kept_codes, [reads.codes(i) for i in surviving],
+                                          pattern, 0.3, device=dev)
+        cats = ("mapped", "seeded_only", "unseedable", "too_short")
+        log(f"[{tag}] classify_reads of {len(surviving)} surviving reads on the card in "
+            f"{time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k} {acct[k]}" for k in cats))
+        if sum(acct[k] for k in cats) != len(surviving) or acct["total"] != len(surviving):
+            raise AssertionError(f"[{tag}] the read accounting does not sum to the survivors")
+    return summary
+
+
+def two_segment_store():
+    """tests/test_batch.py::test_multi_contig_assembly's reads: two unrelated
+    8 kb segments at 10x, reads 600-900, 1% each of sub/ins/del."""
+    from pacbioassembly_tpu_torch.assemble import ReadStore
+    from pacbioassembly_tpu_torch.codec import binary_io
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+
+    rng = np.random.default_rng(3)
+    segs = [rng.integers(0, 4, 8000).astype(np.uint8) for _ in range(2)]
+    reads = []
+    for g in segs:
+        _, rl, _ = simulate(SimConfig(genome_len=len(g), coverage=10.0, mean_read_len=700,
+                                      min_read_len=600, max_read_len=900, sub_rate=0.01,
+                                      ins_rate=0.01, del_rate=0.01, seed=5), genome=g)
+        reads += rl
+    buf = io.BytesIO()
+    binary_io.write_records(buf, reads)
+    return ReadStore(np.frombuffer(buf.getvalue(), dtype=np.uint8))
+
+
+def contigs_cuda_equals_cpu(torch):
+    from pacbioassembly_tpu_torch.assemble.batch import assemble_contigs
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+
+    reads = two_segment_store()
+    cfg = AssemblyConfig(engine="batch", rng_seed=1, pattern_schedule="roundrobin", max_round=40)
+    patterns = dna.load_patterns(SEEDS)
+    for dedupe in (False, True):
+        got, secs = {}, {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            contigs, surviving = assemble_contigs(cfg, reads, patterns, 4, dedupe=dedupe, device=d)
+            secs[d] = time.perf_counter() - t0
+            got[d] = ([(c.codes.tolist(), c.nreads, c.nrounds) for c in contigs], surviving)
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError(f"[contigs:two-devices] dedupe={dedupe}: cuda != cpu")
+        log(f"[contigs:two-devices] dedupe={dedupe}: {len(got['cuda'][0])} contigs "
+            f"{[(len(c), n, r) for c, n, r in got['cuda'][0]]}, {len(got['cuda'][1])} reads left; "
+            f"ContigResults and surviving reads equal on cuda ({secs['cuda']:.1f} s) and cpu "
+            f"({secs['cpu']:.1f} s)")
+
+
+def phase_contigs(torch, dev, replay=True):
+    """The multi-contig path (8): both regimes through the CLI inside one
+    launch-count window, then cuda == cpu. Returns (counts, kept inputs;
+    none kept without `replay`)."""
+    kept = MainPathInputs() if replay else MainPathInputs(())
+    with tempfile.TemporaryDirectory() as tmp:
+        summary, counts = run_path(
+            torch, "contigs", kept, CONTIGS_KERNELS,
+            lambda: [contigs_regime(torch, dev, kept, tmp, *r) for r in CONTIG_REGIMES])
+    log(f"[contigs] {dict(zip((r[0] for r in CONTIG_REGIMES), summary))}")
+    contigs_cuda_equals_cpu(torch)
+    return counts, kept
+
+
 ROUTES = {
     "bitwave": ("pacbioassembly_tpu_torch/csrc/bitwave.cu", "pacbioassembly_tpu/align/bitwave.py:148"),
     "rowdp": ("pacbioassembly_tpu_torch/csrc/wavefront.cu", "pacbioassembly_tpu/align/wavefront.py:67"),
@@ -1091,10 +1345,18 @@ def main() -> int:
     mode.add_argument("--k3-slice", action="store_true",
                       help="drive only the K3 path's E. coli slice on its own store and "
                            "locate through K3 onto its contig, to compare two trees of the port")
+    mode.add_argument("--contigs-path", action="store_true",
+                      help="drive only the multi-contig path (phase 8), to compare two trees "
+                           "of the port")
+    ap.add_argument("--parallel-commit", action="store_true",
+                    help="with --k1-slice: the engine's two-thread host commit "
+                         "(cfg.parallel_commit)")
     ap.add_argument("--port", default=REPO,
                     help="directory whose pacbioassembly_tpu_torch is driven (default: "
                          "this checkout), e.g. an unpacked `git archive` of another commit")
     args = ap.parse_args()
+    if args.parallel_commit and not args.k1_slice:
+        ap.error("--parallel-commit goes with --k1-slice")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -1116,13 +1378,15 @@ def main() -> int:
     ptxas = thread_build(_build)
     log(f"[device] K1 thread build: {ptxas if ptxas else 'not measured (cached build)'}")
 
-    one_phase = args.kernels or args.k1_slice or args.k3_slice
+    one_phase = args.kernels or args.k1_slice or args.k3_slice or args.contigs_path
     if args.kernels:
         phase_kernels(torch, dev, Results(clock))
     elif args.k1_slice:
-        phase_k1_slice_only(torch, dev)
+        phase_k1_slice_only(torch, dev, parallel_commit=args.parallel_commit)
     elif args.k3_slice:
         phase_k3_slice_only(torch, dev)
+    elif args.contigs_path:
+        phase_contigs(torch, dev, replay=False)
     else:
         for line in _build.ptxas_report:
             log(f"[device] ptxas {line}")
@@ -1131,6 +1395,7 @@ def main() -> int:
         phase_kernel_shapes(torch, dev)
         counts, kept, rowdp, genome, _ = phase_slices(torch, dev)
         phase_locate(torch, dev, rowdp, rowdp.ref.text().copy(), counts, kept)
+        counts["contigs"], kept["contigs"] = phase_contigs(torch, dev)
         seen = set()
         for path, k in kept.items():
             seen |= phase_main_path_kernels(torch, res, k, path)

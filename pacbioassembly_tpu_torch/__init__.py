@@ -11,8 +11,9 @@ Host layers, copied from the JAX package with only their imports (and the
 profiler context and the native build directory) changed: config,
 codec/{dna,binary_io}, align/{types,banded,dispatch}, native/pbcore (the
 AVX2 host aligner, built at first use into build/), index/seedmap,
-consensus/state, assemble/{reads,checkpoint,driver}, tools/simulate and
-utils/metrics. A checkpoint written by either engine resumes in the other.
+consensus/state, assemble/{reads,checkpoint,driver}, tools/{simulate,
+coverage,fastx} and utils/metrics; tools/postprocess (contig dedupe and
+read accounting) is a copy whose read mapping runs on the port's locator. A checkpoint written by either engine resumes in the other.
 
 Device layers (JAX module -> port module):
   align/scan.py      plain torch row DP: the screening oracle
@@ -22,13 +23,16 @@ Device layers (JAX module -> port module):
   align/tbwave.py    parent kernel K2 (csrc/tbwave.cu) + walk W (csrc/walk.cu)
   assemble/gather.py device read matrix + batch gather
   consensus/elect.py scatter-add vote delta (parallel/sharded.py elect)
-  assemble/batch.py  BatchAssembler round loop
+  assemble/batch.py  BatchAssembler round loop, multi-contig assemble_contigs
   tools/locate.py    batched read -> contig locator
-  tools/cli.py       `python -m pacbioassembly_tpu_torch assemble|locate|simulate ...`
+  tools/cli.py       `python -m pacbioassembly_tpu_torch <command>`: every
+                     command of the JAX CLI (convert, assemble, import,
+                     simulate, locate, visualize, quality, stat-hash)
 """
 
 __version__ = "0.1.0"
 
+from .config import AssemblyConfig, Constants
 from .device import resolve_device
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["AssemblyConfig", "Constants", "resolve_device", "__version__"]

@@ -20,15 +20,20 @@ contig bytes (tests/test_torch_batch.py). The device is explicit; on a CUDA
 device every screen, parent plane and walk runs as a CUDA kernel, on the
 CPU as the kernels' plain versions.
 
+Multi-contig assembly (`assemble_contigs`) restarts the engine on the
+surviving reads, as the JAX engine's does.
+
 Left out relative to the JAX engine: the multi-device mesh paths, the
 tunnel-retry loop, the first-seen-shape flags of the launch log (PyTorch
-compiles nothing per shape), the XLA traceback path (commits always take
-parents + walk) and multi-contig restarts.
+compiles nothing per shape) and the XLA traceback path (commits always
+take parents + walk).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from typing import Optional, TextIO
 
@@ -232,11 +237,13 @@ class BatchAssembler:
         cfg: AssemblyConfig,
         reads: ReadStore,
         patterns: list[int],
+        ref: Optional[ConsensusRef] = None,
         dump: Optional[TextIO] = None,
-        device: str | torch.device = "cuda",
-        screen_kernel: str = "bitwave",
+        surviving: Optional[list[int]] = None,
         trial_cache: Optional[TrialSeedCache] = None,
         device_builder=None,
+        device: str | torch.device = "cuda",
+        screen_kernel: str = "bitwave",
     ):
         if not patterns:
             raise ValueError("no seed patterns")
@@ -248,8 +255,13 @@ class BatchAssembler:
         self.reads = reads
         self.patterns = patterns
         self.rng = np.random.default_rng(cfg.rng_seed)
-        self.surviving = list(range(len(reads)))
-        self.ref = init_reference(cfg, reads, self.rng, candidates=self.surviving)
+        self.surviving = (
+            list(range(len(reads))) if surviving is None else list(surviving)
+        )
+        if ref is not None:
+            self.ref = ref
+        else:
+            self.ref = init_reference(cfg, reads, self.rng, candidates=self.surviving)
         self.dump = dump
         self.nfailure = 0
         self.nround = 0
@@ -263,6 +275,7 @@ class BatchAssembler:
         self._aligner = partial(exact_align, ratio=cfg.ratio)
         # the trial-seed cache and the device read matrix depend only on
         # the read set: two engines on one read set may share them
+        # (multi-contig restarts do)
         self._trial_cache = trial_cache or TrialSeedCache(reads, cfg)
         self._device_builder = device_builder  # lazy (assemble/gather.py)
         if device_builder is not None and device_builder.device != self.device:
@@ -568,29 +581,90 @@ class BatchAssembler:
 
     def _commit_host(self, cands: CandidateBatch, work):
         """Sequential try_align commits for `work` [(ridx, candidate
-        rows)], in read order. Returns (native align count, consumed ridx
-        list). (The JAX engine's optional two-thread boundary split,
-        cfg.parallel_commit, is not ported; it is off by default.)"""
-        nal = 0
-        cons = []
+        rows)], in read order. Returns (native align count, consumed
+        ridx list).
+
+        When safe (cfg.parallel_commit), the two BOUNDARY REGIONS run in
+        two threads: every candidate comes from the boundary-only seedmap
+        (ref_seq.h:291-311 semantics), so each side's alignments touch at
+        most seedmap-window + read-length cells around its own edge, and
+        growth at post (pre) can only come from right(left)-side
+        candidates: the sides share no state when L >= 2*reach, and
+        per-side order, the carrier of the sequential-growth semantics,
+        is preserved. The native DP is thread_local (pbcore.cpp g_arena)
+        and ctypes releases the GIL for the C call. Reads with candidates
+        in BOTH regions (repeat-spanning) commit after the join: an
+        ordering deviation of the same kind as the engine's round-start
+        snapshot (commit() docstring); votes commute either way. The
+        partition is a pure function of the candidate set, so identical
+        runs give identical results (tests/test_torch_contigs.py)."""
+
+        def run(items):
+            nal = 0
+            cons = []
+            for ridx, ns in items:
+                codes = self.reads.decode(self.surviving[ridx])
+                for n in ns:
+                    cj = int(cands.j[n])
+                    fwd = bool(cands.forward[n])
+                    seg = codes[cj:] if fwd else codes[: len(codes) - cj][::-1]
+                    nal += 1
+                    res = self.ref.try_align(
+                        self._aligner, int(cands.r_offset[n]), seg, fwd
+                    )
+                    if res is not None:
+                        if self.dump is not None:
+                            ref_codes = self.ref.accessor(
+                                int(cands.r_offset[n]), fwd
+                            )[: res.matlen_a]
+                            self.dump.write(dna.codes_to_text(ref_codes) + "\n")
+                            self.dump.write(
+                                dna.codes_to_text(seg[: res.matlen_b]) + "\n"
+                            )
+                        cons.append(ridx)
+                        break
+            return nal, cons
+
+        cfg = self.cfg
+        L = self.ref.length()
+        # disjointness bound for the two-thread split: every candidate
+        # comes from the boundary-only seedmap (window = max_read_len at
+        # each end, ref_seq.h:291-311) and an alignment reaches at most
+        # ~read_len*(1+ratio) cells past its seed, so each side's scatter
+        # region is <= `reach` cells from its own edge; the sides are
+        # disjoint only when L >= 2*reach
+        max_rd = int(self.reads.lengths.max()) if len(self.reads) else 0
+        reach = cfg.max_read_len + int(max_rd * (1.0 + cfg.ratio)) + 64
+        if (
+            not cfg.parallel_commit
+            or self.ref.locked
+            or self.dump is not None
+            or cfg.quirk_stale_dp  # stale-DP emulation is order-sensitive
+            or L < 2 * reach
+            or len(work) < 4
+        ):
+            return run(work)
+        mid = L // 2
+        left, right, mixed = [], [], []
         for ridx, ns in work:
-            codes = self.reads.decode(self.surviving[ridx])
-            for n in ns:
-                cj = int(cands.j[n])
-                fwd = bool(cands.forward[n])
-                seg = codes[cj:] if fwd else codes[: len(codes) - cj][::-1]
-                nal += 1
-                res = self.ref.try_align(self._aligner, int(cands.r_offset[n]), seg, fwd)
-                if res is not None:
-                    if self.dump is not None:
-                        ref_codes = self.ref.accessor(int(cands.r_offset[n]), fwd)[
-                            : res.matlen_a
-                        ]
-                        self.dump.write(dna.codes_to_text(ref_codes) + "\n")
-                        self.dump.write(dna.codes_to_text(seg[: res.matlen_b]) + "\n")
-                    cons.append(ridx)
-                    break
-        return nal, cons
+            sides = {int(cands.r_offset[n]) >= mid for n in ns}
+            if len(sides) == 2:
+                mixed.append((ridx, ns))
+            elif sides.pop():
+                right.append((ridx, ns))
+            else:
+                left.append((ridx, ns))
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            fut_l = ex.submit(run, left)
+            fut_r = ex.submit(run, right)
+            nl, cl = fut_l.result()
+            nr, cr = fut_r.result()
+        nm, cm = run(mixed)
+        # threads' ref.version += 1 are racy read-modify-writes; one more
+        # bump guarantees the post-commit version differs from any value
+        # a device cache was keyed on during screening
+        self.ref.version += 1
+        return nl + nr + nm, sorted(cl + cr + cm)
 
     def _apply_interior_votes(
         self,
@@ -882,3 +956,97 @@ class BatchAssembler:
         if out:
             out.write(dna.codes_to_text(self.ref.text()) + "\n")
         return False
+
+
+@dataclasses.dataclass
+class ContigResult:
+    codes: np.ndarray      # final consensus codes
+    nreads: int            # reads consumed into this contig
+    nrounds: int           # rounds run
+
+
+def assemble_contigs(
+    cfg: AssemblyConfig,
+    reads: ReadStore,
+    patterns: list[int],
+    n_contigs: int,
+    log: Optional[TextIO] = None,
+    dedupe: bool = True,
+    *,
+    device: str | torch.device = "cuda",
+    screen_kernel: str = "bitwave",
+) -> tuple[list[ContigResult], list[int]]:
+    """Multi-contig assembly: run the batch engine to termination, then
+    RESTART on the surviving reads with a fresh random initial read, until
+    n_contigs are produced or no reads remain.
+
+    The reference builds one contig per process and relies on manually
+    re-running with `-f` to continue (README.mkd:52-63, doc/final.tex:
+    245-249 "restart from a saved sequence"); this automates that
+    workflow. The trial-seed cache and the device-resident read matrix are
+    shared across restarts (they depend only on the read set). With
+    `dedupe` (default), contigs whose sequence is almost entirely
+    contained in a larger contig (tools/postprocess.py::dedupe_contigs:
+    restarts re-assembling scraps of already-covered sequence) are
+    dropped from the output; their reads stay consumed. Every engine runs
+    on `device` with the screening kernel `screen_kernel`. Returns
+    (contigs, surviving_read_rows)."""
+    contigs: list[ContigResult] = []
+    surviving: Optional[list[int]] = None
+    cache = None
+    builder = None
+    for ci in range(n_contigs):
+        c = dataclasses.replace(
+            cfg,
+            rng_seed=None if cfg.rng_seed is None else cfg.rng_seed + ci,
+            # -f seeds only the first contig; restarts pick a random
+            # surviving read (init, spaced_seed.cpp:205-210)
+            initial_ref_path=cfg.initial_ref_path if ci == 0 else None,
+            checkpoint_path=None,
+            resume_path=None if ci else cfg.resume_path,
+        )
+        asm = BatchAssembler(
+            c, reads, patterns,
+            surviving=surviving,
+            trial_cache=cache,
+            device_builder=builder,
+            device=device,
+            screen_kernel=screen_kernel,
+        )
+        if not asm.surviving:
+            break
+        before = len(asm.surviving)
+        asm.run(out=None, log=log)
+        contigs.append(
+            ContigResult(
+                codes=asm.ref.text().copy(),
+                nreads=before - len(asm.surviving),
+                nrounds=asm.nround,
+            )
+        )
+        if log:
+            log.write(
+                f"=== contig {ci}: {len(contigs[-1].codes)} bp from "
+                f"{contigs[-1].nreads} reads in {asm.nround} rounds; "
+                f"{len(asm.surviving)} reads left\n"
+            )
+        surviving = asm.surviving
+        cache = asm._trial_cache
+        builder = asm._device_builder
+        # free the big consensus tensors before the next restart
+        del asm
+        if not surviving:
+            break
+    if dedupe and len(contigs) > 1:
+        from ..tools.postprocess import dedupe_contigs
+
+        kept, dropped = dedupe_contigs([c.codes for c in contigs])
+        if dropped and log:
+            for d in dropped:
+                log.write(
+                    f"=== dropping contig {d['idx']} "
+                    f"({len(contigs[d['idx']].codes)} bp): {d['covered']:.0%} "
+                    f"contained in contig {d['into']}\n"
+                )
+        contigs = [contigs[i] for i in kept]
+    return contigs, surviving if surviving is not None else list(range(len(reads)))

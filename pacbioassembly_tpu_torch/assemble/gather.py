@@ -22,6 +22,8 @@ layout):
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -108,8 +110,10 @@ class DeviceBatchBuilder:
     def window(self, ref):
         """Device copy of ref.buf[pre:post) (padded to the 8192 ladder)
         concatenated with its reverse, plus the real window length;
-        uploaded once per reference mutation-version."""
-        key = (id(ref), ref.version, ref.pre, ref.post)
+        uploaded once per reference mutation-version. The key holds a weak
+        reference, not id(ref): multi-contig restarts share this builder,
+        and a later engine's reference may reuse a freed one's id."""
+        key = (weakref.ref(ref), ref.version, ref.pre, ref.post)
         if self._win_cache[0] == key:
             return self._win_cache[1]
         win = ref.buf[ref.pre : ref.post]

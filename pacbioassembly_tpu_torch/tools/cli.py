@@ -1,28 +1,60 @@
-"""Command-line tools of the port.
+"""Command-line tools of the port: every command of the JAX CLI
+(pacbioassembly_tpu/tools/cli.py), the same flags and the same output.
 
+  convert    text <-> 2-bit binary record files (binary_test.cpp:44-76)
   assemble   iterative consensus assembly; `--engine batch` runs the port's
              batch engine on `--device cuda` (the CUDA kernels) or
-             `--device cpu` (their plain versions); `--engine exact` runs
-             the port's sequential host engine (assemble/driver.py)
+             `--device cpu` (their plain versions), `--contigs N` restarts
+             it on the surviving reads and prints FASTA; `--engine exact`
+             runs the port's sequential host engine (assemble/driver.py)
+  import     FASTA/FASTQ -> 2-bit binary records, with a quality stream
+             (tools/fastx.py)
+  simulate   synthetic PacBio-style reads (tools/simulate.py)
   locate     map stdin reads onto a finished contig (locator.cpp:41-96):
              batched screening on `--device cuda|cpu`, or `--host-loop`,
              the sequential exact-aligner loop
-  simulate   synthetic PacBio-style reads (tools/simulate.py)
+  visualize  render stdin (ref, seg) alignments (visual_align.cpp:42-74)
+  quality    mean ASCII value per stdin line (quality.cpp:32-39)
+  stat-hash  base-composition hash per stdin line (stat_hash.c:19-47)
 
 Usage: python -m pacbioassembly_tpu_torch <command> [args]
 
-The flags are those of the JAX CLI (pacbioassembly_tpu/tools/cli.py), plus
-`--device`. The screening kernel comes from PBTPU_SCREEN_BACKEND, read
-here once (align/screen.py::screen_kernel): unset or `bitpallas` for K1,
-`pallas` for K3, `scan` (CPU only) for the plain row DP; anything else
-raises. `--contigs N > 1` is not ported yet: it needs
-tools/postprocess.py's contig dedupe (ROADMAP.md, queue A).
+`assemble` and `locate` take `--device` in addition to the JAX flags. The
+screening kernel comes from PBTPU_SCREEN_BACKEND, read here once
+(align/screen.py::screen_kernel): unset or `bitpallas` for K1, `pallas`
+for K3, `scan` (CPU only) for the plain row DP; anything else raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+import numpy as np
+
+
+def cmd_convert(args) -> int:
+    from ..codec import binary_io, dna
+
+    if args.mode == "0":
+        for line in sys.stdin:
+            for word in line.split():
+                codes = dna.text_to_codes(word)
+                rec = np.frombuffer(dna.record_from_codes(codes), dtype=np.uint8)
+                back = dna.codes_to_text(dna.unpack_codes(rec[4:], len(codes)))
+                if back != word:
+                    print(f"Error:{word}\n{back}")
+                    return 1
+        return 0
+    if args.mode == "1":
+        binary_io.texts_to_binary_file(sys.stdin, args.file)
+        return 0
+    if args.mode == "2":
+        for text in binary_io.binary_file_to_texts(args.file):
+            print(text)
+        return 0
+    print("mode must be 0, 1 or 2", file=sys.stderr)
+    return 1
 
 
 def cmd_assemble(args) -> int:
@@ -31,12 +63,6 @@ def cmd_assemble(args) -> int:
     from ..codec import dna
     from ..config import AssemblyConfig
 
-    if args.contigs > 1:
-        raise NotImplementedError(
-            "--contigs > 1 is not ported yet: multi-contig restarts need "
-            "tools/postprocess.py (ROADMAP.md queue A: tools/locate.py, "
-            "tools/postprocess.py and --contigs N)"
-        )
     cfg = AssemblyConfig(
         ratio=args.ratio,
         max_round=args.max_round,
@@ -59,6 +85,26 @@ def cmd_assemble(args) -> int:
     )
     reads = ReadStore.from_file(args.bin, cfg)
     patterns = dna.load_patterns(args.seedfile)
+    if args.contigs > 1:
+        if cfg.engine != "batch":
+            print("--contigs requires --engine batch", file=sys.stderr)
+            return 1
+        from ..assemble.batch import assemble_contigs
+
+        contigs, surviving = assemble_contigs(
+            cfg, reads, patterns, args.contigs,
+            log=sys.stderr if not args.quiet else None,
+            device=args.device, screen_kernel=screen_kernel(args.device),
+        )
+        for i, c in enumerate(contigs):
+            print(f">contig_{i} length={len(c.codes)} reads={c.nreads} rounds={c.nrounds}")
+            print(dna.codes_to_text(c.codes))
+        print(
+            f"{len(contigs)} contigs, {len(reads) - len(surviving)} of "
+            f"{len(reads)} reads consumed",
+            file=sys.stderr,
+        )
+        return 0
     dump = open(args.dump, "w") if args.dump else None
     try:
         if cfg.engine == "batch":
@@ -148,9 +194,75 @@ def locate_host_loop(contig_codes, pattern: int, seqs, ratio: float, out=None) -
     return 0
 
 
+def cmd_visualize(args) -> int:
+    """Render alignments of (ref, seg) stdin pairs (visual_align.cpp:42-74)."""
+    from ..align import INSERT, MATCH, exact_align
+    from ..codec import dna
+
+    words = sys.stdin.read().split()
+    for i in range(0, len(words) - 1, 2):
+        ref_str, seg_str = words[i], words[i + 1]
+        a = dna.text_to_codes(seg_str)
+        b = dna.text_to_codes(ref_str)
+        res = exact_align(a, b, ratio=args.ratio)
+        if res is None or res.matlen_b <= 0:
+            print("cannot align", file=sys.stderr)
+            print(ref_str, file=sys.stderr)
+            print(seg_str, file=sys.stderr)
+            continue
+        print(res.cost)
+        aref, aseg = [], []
+        iref = iseg = 0
+        for op in res.ops:
+            if op == MATCH:
+                aref.append(ref_str[iref]); iref += 1
+                aseg.append(seg_str[iseg]); iseg += 1
+            elif op == INSERT:
+                aseg.append("-")
+                aref.append(ref_str[iref]); iref += 1
+            else:
+                aref.append("-")
+                aseg.append(seg_str[iseg]); iseg += 1
+        print("".join(aref))
+        print("".join(aseg))
+    return 0
+
+
+def cmd_quality(args) -> int:
+    for line in sys.stdin:
+        line = line.rstrip("\n")
+        if not line:
+            continue
+        vals = np.frombuffer(line.encode("latin1"), dtype=np.uint8)
+        print(int(vals.sum()) // len(vals))
+    return 0
+
+
+def cmd_stat_hash(args) -> int:
+    def quantize(v: int) -> int:
+        return 0xFF if (v >> 4) > 0xFF else (v >> 4) & 0xFF
+
+    def line_hash(line: str) -> int:
+        a = line.count("A"); c = line.count("C")
+        g = line.count("G"); t = line.count("T")
+        return (
+            (quantize(a) << 24) | (quantize(c) << 16) | (quantize(g) << 8) | quantize(t)
+        )
+
+    data = sys.stdin.read()
+    for line in data.split("\n"):
+        print(f"{line_hash(line):08x}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m pacbioassembly_tpu_torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("convert", help="text <-> 2-bit binary record files")
+    p.add_argument("mode", choices=["0", "1", "2"])
+    p.add_argument("file", nargs="?")
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser("assemble", help="iterative consensus assembly")
     p.add_argument("bin")
@@ -180,7 +292,8 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--contigs", type=int, default=1,
-        help="multi-contig mode: not ported yet (only 1 is accepted)",
+        help="multi-contig mode (batch engine): restart on surviving reads "
+        "until N contigs are built; prints FASTA",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -189,6 +302,15 @@ def main(argv=None) -> int:
     )
     p.add_argument("-q", "--quiet", action="store_true")
     p.set_defaults(fn=cmd_assemble)
+
+    p = sub.add_parser("import", help="FASTA/FASTQ -> 2-bit binary records")
+    p.add_argument("input")
+    p.add_argument("out")
+    p.add_argument("--min-len", type=int, default=0)
+    p.add_argument("--quality-out", default=None)
+    from .fastx import cmd_fastx
+
+    p.set_defaults(fn=cmd_fastx)
 
     p = sub.add_parser("simulate", help="generate synthetic PacBio-style reads")
     p.add_argument("out")
@@ -220,6 +342,16 @@ def main(argv=None) -> int:
         "version); asking for cuda without a GPU is an error",
     )
     p.set_defaults(fn=cmd_locate)
+
+    p = sub.add_parser("visualize", help="render stdin (ref, seg) alignments")
+    p.add_argument("-r", "--ratio", type=float, default=0.3)
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("quality", help="mean ASCII value per stdin line")
+    p.set_defaults(fn=cmd_quality)
+
+    p = sub.add_parser("stat-hash", help="base-composition hash per stdin line")
+    p.set_defaults(fn=cmd_stat_hash)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -78,3 +78,25 @@ def test_gather_matches_jax_builder_and_host_packing():
     np.testing.assert_array_equal(b_d.numpy(), b_h)
     np.testing.assert_array_equal(la_d.numpy(), la_h)
     np.testing.assert_array_equal(lb_d.numpy(), lb_h)
+
+
+def test_shared_builder_serves_each_engines_own_window(monkeypatch):
+    """Multi-contig restarts share one builder: a later engine's reference
+    gets its own window even when it takes a freed reference's id() and
+    equals it in version and window bounds (forced here: every id() is 1)."""
+    from pacbioassembly_tpu_torch.assemble import gather
+    from pacbioassembly_tpu_torch.consensus import ConsensusRef
+
+    cfg = AssemblyConfig(engine="batch")
+    reads = ReadStore.from_file(os.path.join(DATA, "synth_reads.bin"), cfg)
+    builder = gather.DeviceBatchBuilder(reads, cfg, torch.device("cpu"))
+    monkeypatch.setattr(gather, "id", lambda obj: 1, raising=False)
+    rng = np.random.default_rng(1)
+    first = ConsensusRef(rng.integers(0, 4, 900).astype(np.uint8), capacity=3000)
+    win, wlen = builder.window(first)
+    assert torch.equal(win[:wlen], torch.from_numpy(first.buf[first.pre : first.post]))
+    del first
+    second = ConsensusRef(rng.integers(0, 4, 900).astype(np.uint8), capacity=3000)
+    win, wlen = builder.window(second)
+    assert torch.equal(win[:wlen], torch.from_numpy(second.buf[second.pre : second.post]))
+    assert builder.window(second)[0] is win  # same reference, same version: cached

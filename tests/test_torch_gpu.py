@@ -1,6 +1,7 @@
 """Port on the card: each CUDA kernel (csrc/) against its plain PyTorch
-version on the same CUDA tensors, bit for bit, and the engine on `cuda`
-against the engine on `cpu`. Marked `gpu`; skips without CUDA. Imports
+version on the same CUDA tensors, bit for bit, and the engine, multi-contig
+assembly, read accounting and `assemble --contigs` on `cuda` against the
+same on `cpu`. Marked `gpu`; skips without CUDA. Imports
 no jax, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -26,12 +27,16 @@ from pacbioassembly_tpu_torch.align.tbwave import (
 )
 from pacbioassembly_tpu_torch.align.wavefront import batch_score_rowdp
 from pacbioassembly_tpu_torch.assemble import ReadStore
-from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler, assemble_contigs
 from pacbioassembly_tpu_torch.codec import binary_io, dna
 from pacbioassembly_tpu_torch.config import AssemblyConfig
 from pacbioassembly_tpu_torch.consensus.elect import elect_packed
+from pacbioassembly_tpu_torch.tools import cli
 from pacbioassembly_tpu_torch.tools.locate import map_reads
+from pacbioassembly_tpu_torch.tools.postprocess import classify_reads
 from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+
+from torch_contigs import CONFIG, SEEDS, write_two_segments
 
 from torch_parity import (
     WALK_W,
@@ -494,6 +499,62 @@ def test_engine_on_card_equals_cpu(cuda, screen_kernel):
     assert {k for k in _build.KERNELS if g[2][k] > 0} == used
     assert all(g[2][k] == 0 for k in _build.PLAIN)
     assert all(c[2][k] == 0 for k in _build.KERNELS)
+
+
+@pytest.mark.parametrize("dedupe", [False, True])
+def test_assemble_contigs_on_card_equals_cpu(cuda, dedupe, tmp_path):
+    """The two-segment store of tests/test_batch.py::test_multi_contig_assembly,
+    4 contigs: equal ContigResults and surviving reads, the card's run
+    through the kernels only."""
+    store = write_two_segments(tmp_path)
+    cfg = AssemblyConfig(**CONFIG)
+    pats = dna.load_patterns(SEEDS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _build.reset_counts()
+        contigs, surviving = assemble_contigs(cfg, ReadStore.from_file(store, cfg), pats, 4,
+                                              dedupe=dedupe, device=dev)
+        runs[dev] = ([(c.codes.tolist(), c.nreads, c.nrounds) for c in contigs], surviving,
+                     dict(_build.LAUNCHES))
+    g, c = runs["cuda"], runs["cpu"]
+    assert g[:2] == c[:2]
+    assert sum(len(codes) > 6000 for codes, _, _ in g[0]) == 2
+    used = {k for k in _build.KERNELS if g[2][k] > 0}
+    assert {"bitwave_fullscreen", "tbwave", "walk"} <= used
+    assert used <= {"bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"}
+    assert all(g[2][k] == 0 for k in _build.PLAIN)
+
+
+def test_classify_reads_on_card_equals_cpu(cuda):
+    """Reads of a genome, half of its 60 kb region assembled into a contig
+    and some junk, accounted for on the card and on the CPU."""
+    genome, reads, _ = simulate(SimConfig(genome_len=80_000, coverage=1.0, mean_read_len=1500,
+                                          min_read_len=300, max_read_len=2500, seed=7,
+                                          sub_rate=0.02, ins_rate=0.02, del_rate=0.02))
+    rng = np.random.default_rng(8)
+    reads += [rng.integers(0, 4, 1200).astype(np.uint8) for _ in range(5)]
+    contigs = [genome[:60_000].copy(), genome[62_000:70_000].copy()]
+    pattern = dna.parse_pattern("1111111111111111")
+    want = classify_reads(contigs, reads, pattern, 0.3, device="cpu")
+    before = _build.LAUNCHES["bitwave_locate"]
+    got = classify_reads(contigs, reads, pattern, 0.3, device=cuda)
+    assert _build.LAUNCHES["bitwave_locate"] > before
+    assert torch.equal(torch.from_numpy(got.pop("categories")), torch.from_numpy(want.pop("categories")))
+    assert got == want
+    assert want["mapped"] > 0 and want["unseedable"] >= 5
+    assert sum(want[k] for k in ("mapped", "seeded_only", "unseedable", "too_short")) == len(reads)
+
+
+def test_contigs_cli_on_card_equals_cpu(cuda, tmp_path, capsys):
+    store = write_two_segments(tmp_path)
+    argv = ["assemble", store, SEEDS, "--engine", "batch", "--schedule", "roundrobin",
+            "--rng-seed", "1", "-m", "40", "--contigs", "2", "--device"]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        assert cli.main(argv + [dev]) == 0
+        outs.append(capsys.readouterr())
+    assert outs[0].out == outs[1].out and outs[0].err == outs[1].err
+    assert outs[0].out.count(">contig_") == 2
 
 
 def _k3_edge_cases(rng, W):

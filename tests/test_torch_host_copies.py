@@ -1,6 +1,7 @@
 """Port: the host layers the port keeps as its own copies (config, codec,
 align types/banded/dispatch, native pbcore, index/seedmap, consensus/state,
-assemble reads/checkpoint/driver, tools/simulate, utils/metrics) against
+assemble reads/checkpoint/driver, tools/simulate, tools/coverage,
+tools/fastx, utils/metrics) against
 their originals in the JAX package, on the same seeded numpy inputs. One
 parametrised test, one case per copied layer; everything is exact. The
 checkpoint case carries a run across in both directions, and the native
@@ -23,6 +24,8 @@ import pacbioassembly_tpu.config as jax_config
 import pacbioassembly_tpu.consensus as jax_consensus
 import pacbioassembly_tpu.index as jax_index
 import pacbioassembly_tpu.native.pbcore as jax_pbcore
+import pacbioassembly_tpu.tools.coverage as jax_coverage
+import pacbioassembly_tpu.tools.fastx as jax_fastx
 import pacbioassembly_tpu.tools.simulate as jax_simulate
 import pacbioassembly_tpu.utils.metrics as jax_metrics
 import pacbioassembly_tpu_torch.align as port_align
@@ -34,6 +37,8 @@ import pacbioassembly_tpu_torch.config as port_config
 import pacbioassembly_tpu_torch.consensus as port_consensus
 import pacbioassembly_tpu_torch.index as port_index
 import pacbioassembly_tpu_torch.native.pbcore as port_pbcore
+import pacbioassembly_tpu_torch.tools.coverage as port_coverage
+import pacbioassembly_tpu_torch.tools.fastx as port_fastx
 import pacbioassembly_tpu_torch.tools.simulate as port_simulate
 import pacbioassembly_tpu_torch.utils.metrics as port_metrics
 
@@ -278,6 +283,55 @@ def check_metrics():
         pass  # no trace directory: no profiler, no jax
 
 
+def check_coverage():
+    """evaluate_assembly and its parts on a chimeric, a clean, a shuffled
+    and a junk contig of one genome."""
+    rng = np.random.default_rng(6)
+    g = rng.integers(0, 4, 120_000).astype(np.uint8)
+    noisy = g[5_000:40_000].copy()
+    pos = rng.choice(len(noisy), 700, replace=False)
+    noisy[pos] = (noisy[pos] + 1) % 4
+    contigs = [noisy, np.concatenate([g[50_000:60_000], g[90_000:100_000]]),
+               np.concatenate([g[110_000:118_000], g[62_000:70_000]]),
+               rng.integers(0, 4, 3_000).astype(np.uint8), g[70_000:70_010].copy()]
+    (pk, pp), (jk, jp) = port_coverage._unique_anchors(g), jax_coverage._unique_anchors(g)
+    np.testing.assert_array_equal(pk, jk)
+    np.testing.assert_array_equal(pp, jp)
+    for c in contigs:
+        assert port_coverage.contig_intervals(c, pk, pp) == jax_coverage.contig_intervals(c, jk, jp)
+        assert port_coverage.contig_chains(c, pk, pp) == jax_coverage.contig_chains(c, jk, jp)
+    for kw in ({}, {"max_gap": 200, "break_tol": 5_000}):
+        got = port_coverage.evaluate_assembly(g, contigs, **kw)
+        assert got == jax_coverage.evaluate_assembly(g, contigs, **kw)
+    assert got["misassemblies"] >= 2 and 0.4 < got["genome_fraction"] < 0.7
+
+
+def check_fastx(tmp_path):
+    """The parser on FASTA, FASTQ and headerless text, and the import
+    command's records and quality stream."""
+    rng = np.random.default_rng(7)
+    seqs = [port_codec.codes_to_text(rng.integers(0, 4, int(n)).astype(np.uint8))
+            for n in rng.integers(5, 400, 8)]
+    quals = ["".join(chr(33 + int(q)) for q in rng.integers(0, 41, len(s))) for s in seqs]
+    texts = {
+        "fa": "".join(f">s{i} x\n{s[:50]}\n{s[50:]}\n\n" for i, s in enumerate(seqs)),
+        "fq": "".join(f"@s{i}\n{s}\n+\n{q}\n" for i, (s, q) in enumerate(zip(seqs, quals))),
+        "txt": "\n".join(seqs) + "\n",
+    }
+    for ext, text in texts.items():
+        got = list(port_fastx.parse_fastx(io.StringIO(text)))
+        assert got == list(jax_fastx.parse_fastx(io.StringIO(text))) and len(got) == 8
+        src = tmp_path / f"in.{ext}"
+        src.write_text(text)
+        blobs = []
+        for mod in (port_fastx, jax_fastx):
+            out, q = tmp_path / f"{mod.__name__}.bin", tmp_path / f"{mod.__name__}.q"
+            mod.cmd_fastx(types.SimpleNamespace(input=str(src), out=str(out), min_len=100,
+                                                quality_out=str(q)))
+            blobs.append((out.read_bytes(), q.read_text()))
+        assert blobs[0] == blobs[1] and blobs[0][0]
+
+
 CHECKS = {
     "config": check_config,
     "codec": check_codec,
@@ -286,6 +340,8 @@ CHECKS = {
     "exact_align_numpy": check_exact_align_numpy,
     "consensus": check_consensus,
     "simulate": check_simulate,
+    "coverage": check_coverage,
+    "fastx": check_fastx,
     "reads": check_reads,
     "driver": check_driver,
     "checkpoint": check_checkpoint,
@@ -296,4 +352,4 @@ CHECKS = {
 @pytest.mark.parametrize("layer", sorted(CHECKS))
 def test_port_copy_equals_original(layer, tmp_path):
     fn = CHECKS[layer]
-    fn(tmp_path) if fn is check_checkpoint else fn()
+    fn(tmp_path) if fn in (check_checkpoint, check_fastx) else fn()

@@ -1,6 +1,9 @@
 """Port: the package imports neither jax nor anything of the JAX package
 (checked in a fresh interpreter, since this test process has both loaded,
-and by parsing every source), chip_smoke.py imports only the port, and
+and by parsing every source; the fresh interpreter also drives multi-contig
+assembly, its dedupe and read accounting, the coverage evaluation and the
+FASTA parser), it exports the JAX package's names, chip_smoke.py imports
+only the port, and
 nothing falls back silently: asking for a GPU without one, a device type
 the port does not run on, or a kernel build without nvcc raises."""
 
@@ -29,9 +32,10 @@ from pacbioassembly_tpu_torch.assemble import ReadStore, batch, gather
 from pacbioassembly_tpu_torch.codec import binary_io, dna
 from pacbioassembly_tpu_torch.config import AssemblyConfig
 from pacbioassembly_tpu_torch.consensus import elect
-from pacbioassembly_tpu_torch.tools import cli, locate
+from pacbioassembly_tpu_torch.tools import cli, coverage, fastx, locate, postprocess
 from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 import chip_smoke
+assert pacbioassembly_tpu_torch.AssemblyConfig is AssemblyConfig
 
 genome, reads, _ = simulate(SimConfig(genome_len=6000, coverage=8.0, mean_read_len=700,
                                       min_read_len=600, max_read_len=900, seed=2,
@@ -47,9 +51,28 @@ assert asm.nround == 2 and asm.ref.length() > 0
 rows, n = locate.map_reads(genome, dna.parse_pattern("1111111111111111"), reads[:6], 0.15,
                            device="cpu", screen_kernel="rowdp")
 assert n == 6 and len(rows) >= 3
+contigs, left = batch.assemble_contigs(cfg, ReadStore.from_file(path, cfg),
+                                       [dna.parse_pattern("1111111111111111")], 2, device="cpu")
+assert len(contigs) >= 1 and len(left) < len(reads)
+acct = postprocess.classify_reads([c.codes for c in contigs], [reads[i] for i in left[:4]],
+                                  dna.parse_pattern("1111111111111111"), 0.3, min_contig=500,
+                                  device="cpu")
+assert acct["total"] == len(left[:4])
+assert coverage.evaluate_assembly(genome, [c.codes for c in contigs])["genome_len"] == 6000
+assert [r[1] for r in fastx.parse_fastx(io.StringIO(">a\nACGT\n"))] == ["ACGT"]
 print("JAX_LOADED", "jax" in sys.modules, "PALLAS", any(m.startswith("jax") for m in sys.modules),
       "JAX_PACKAGE", sorted(m for m in sys.modules if m.split(".")[0] == "pacbioassembly_tpu"))
 """
+
+
+def test_port_exports_the_jax_packages_names():
+    import pacbioassembly_tpu
+    import pacbioassembly_tpu_torch
+    from pacbioassembly_tpu_torch.config import AssemblyConfig, Constants
+
+    assert set(pacbioassembly_tpu.__all__) <= set(pacbioassembly_tpu_torch.__all__)
+    assert pacbioassembly_tpu_torch.AssemblyConfig is AssemblyConfig
+    assert pacbioassembly_tpu_torch.Constants is Constants
 
 
 def test_port_never_imports_jax():
