@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k1-slice --parallel-commit   # the same with the two-thread host commit
     python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
     python3 chip_smoke.py --contigs-path [--port DIR]   # only the multi-contig path of 8
+    python3 chip_smoke.py --mesh-path [--port DIR]      # only the mesh phase of 9
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
@@ -45,10 +46,10 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      it did not) mapped onto its contig, pattern 1 of seeds.txt, R=0.15,
      through K3 and through K1: equal TSVs, the first 100 reads equal the
      sequential host loop, residual error and wall time of each;
-  6. every kernel variant the paths of 3-5 and 8 launched, held against its
-     plain version on the inputs of its first launches, at the paths' own
-     shapes, and K3's variants at each of its launch shapes equal to the
-     wrapper's choice on those inputs (8 runs before 6 and 7);
+  6. every kernel variant the paths of 3-5, 8 and 9 launched, held against
+     its plain version on the inputs of its first launches, at the paths'
+     own shapes, and K3's variants at each of its launch shapes equal to the
+     wrapper's choice on those inputs (8 and 9 run before 6 and 7);
   7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
      contig bytes, votes and surviving reads;
   8. multi-contig assembly through the CLI (`assemble --engine batch
@@ -67,7 +68,22 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      plain version; phase 6 replays this path's variants too. Then (c)
      the two-segment store of tests/test_batch.py::test_multi_contig_assembly,
      4 contigs, without and with dedupe, on cuda and on cpu: equal
-     ContigResults and surviving reads.
+     ContigResults and surviving reads;
+  9. the multi-device round: (a) the engine on a 2-shard mesh of the card
+     (`make_mesh(devices=[cuda:0, cuda:0])`) on the slice's read store for
+     MESH_ROUNDS rounds: the single-device round with each full screen
+     split into two shards and the elect summed over them; its RoundStats,
+     contig bytes, votes and surviving reads must equal the K1 slice's at
+     that round (recorded in 3), s/round beside the slice's; K1 (prefilter
+     and full screen), K2 and W must have launched, no plain version, and
+     K1's full screen twice a screening launch;
+     (b) two gloo processes on 127.0.0.1 (tests/torch_multihost_worker.py),
+     two shards each on the card: the sharded screen and summed elect equal
+     the serial port on both; (c) align/traceback.py on the card == its CPU
+     run, align/bitscan.py on the card == K1, and the device seed index and
+     device evolve on the K1 slice's round-60 contig and reference (before
+     its evolve) == the host build_seedmap / lookup_batch and evolve, each
+     timed beside the host function.
 
 Kernel times are CUDA events: a kernel's is the min over fresh inputs of
 its wrapper's launches queued behind a spin kernel, so that the host's
@@ -93,6 +109,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -545,8 +562,9 @@ class MainPathInputs:
     screening kernel by launch kind and (LA, LB, W, R), K2 by (LA, W), W by
     W. Installs thin wrappers over the kernel wrappers the paths call (the
     screening wrappers' module attributes, which align/screen.py looks up
-    at call time, and the names assemble/gather.py calls); each copies its
-    inputs and calls the real wrapper. `kernels` limits what is kept."""
+    at call time, and the names assemble/gather.py and align/traceback.py
+    call); each copies its inputs and calls the real wrapper. `kernels`
+    limits what is kept."""
 
     KEEP = 3  # launches kept per variant and batch size
 
@@ -555,8 +573,14 @@ class MainPathInputs:
         from pacbioassembly_tpu_torch.assemble import gather
 
         self.kernels = kernels
-        self.slots = ((bitwave, "batch_score_bitwave"), (wavefront, "batch_score_rowdp"),
-                      (gather, "batch_parents"), (gather, "walk_parents"))
+        self.slots = [(bitwave, "batch_score_bitwave"), (wavefront, "batch_score_rowdp"),
+                      (gather, "batch_parents"), (gather, "walk_parents")]
+        try:
+            from pacbioassembly_tpu_torch.align import traceback
+        except ImportError:  # a tree of the port from before align/traceback.py (--port)
+            pass
+        else:
+            self.slots += [(traceback, "batch_parents"), (traceback, "walk_parents")]
         self.real = [getattr(m, n) for m, n in self.slots]
         self.calls: dict = {}   # (kernel, geometry) -> {B: launches}
         self.inputs: dict = {}  # (kernel, geometry, B) -> [(args, kw), ...]
@@ -574,7 +598,7 @@ class MainPathInputs:
             self.nbytes += sum(x.numel() * x.element_size() for x in args)
 
     def install(self):
-        score_k1, score_k3, parents, walk = self.real
+        score_k1, score_k3, parents, walk = self.real[:4]
 
         def screening(name, real):
             def kept(a, la, b, lb, **kw):
@@ -592,7 +616,7 @@ class MainPathInputs:
             return walk(*args, **kw)
 
         wrapped = (screening("bitwave", score_k1), screening("rowdp", score_k3),
-                   parents_kept, walk_kept)
+                   parents_kept, walk_kept, parents_kept, walk_kept)
         for (mod, name), fn in zip(self.slots, wrapped):
             setattr(mod, name, fn)
 
@@ -837,9 +861,11 @@ def same_state(a: dict, b: dict) -> bool:
             and a["surviving"] == b["surviving"])
 
 
-def run_slice(torch, asm, name, max_round, kept, used):
+def run_slice(torch, asm, name, max_round, kept, used, untimed=None):
     """Drive one engine to max_round on its own metrics log, then report
-    s/round and phases. Returns the launch counts."""
+    s/round and phases; `untimed` maps a round to seconds spent in it on
+    the smoke's own records, left out of its round_s. Returns the launch
+    counts."""
     with tempfile.TemporaryDirectory() as tmp:
         metrics = os.path.join(tmp, "metrics.jsonl")
         asm.cfg = dataclasses.replace(asm.cfg, max_round=max_round, metrics_path=metrics)
@@ -860,7 +886,7 @@ def run_slice(torch, asm, name, max_round, kept, used):
         with open(metrics) as fh:
             rounds = [json.loads(line) for line in fh]
     rounds = [r for r in rounds if r["event"] == "round"]
-    rs = np.array([r["round_s"] for r in rounds])
+    rs = np.array([r["round_s"] - (untimed or {}).get(r["nround"], 0.0) for r in rounds])
     cands = [s.ntrials for s in asm.history]
     log(f"[{name}] {asm.nround} rounds in {wall:.1f} s: {len(asm.reads) - len(asm.surviving)} of "
         f"{len(asm.reads)} reads consumed, contig {asm.ref.length()} bp, candidates/round max "
@@ -989,15 +1015,20 @@ def phase_k3_slice_only(torch, dev, genome_len=4_600_000, max_round=60):
 
 def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
     """The K1 path, then the row-DP path on the same store; returns
-    (per-path counts, per-path kept inputs, row-DP engine, genome)."""
+    (per-path counts, per-path kept inputs, row-DP engine, genome, the K1
+    slice's record for the mesh phase)."""
     from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
 
     genome, reads, patterns, cfg, k1 = slice_engine(torch, dev, genome_len, max_round)
     init_len = k1.ref.length()
     kept = {"bitwave slice": MainPathInputs(), "rowdp slice": MainPathInputs(("rowdp",))}
     counts = {}
-    counts["bitwave slice"] = run_slice(
-        torch, k1, "bitwave slice", max_round, kept["bitwave slice"], K1_SLICE_KERNELS)
+    # the mesh phase's reference: the state at its round, the reference of
+    # the slice's last round before its evolve
+    with recorded(k1, MESH_ROUNDS, copy_round=max_round) as rec:
+        counts["bitwave slice"] = run_slice(
+            torch, k1, "bitwave slice", max_round, kept["bitwave slice"], K1_SLICE_KERNELS,
+            untimed=rec["untimed"])
     if len(reads) - len(k1.surviving) <= 0 or k1.ref.length() <= init_len:
         raise AssertionError("the slice consumed no reads or the contig did not grow")
     share = kmer_share(k1.ref.text(), genome)
@@ -1007,6 +1038,7 @@ def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
         f"in the genome")
     snap = state_of(k1)
     rounds = k1.nround
+    ref_round = dict(rec, contig=snap["contig"], at=rounds)
     profile_rounds(torch, k1, "bitwave slice", PROFILED_ROUNDS["bitwave"])
 
     # the row-DP path: same reads, trial seeds and device read matrix
@@ -1020,7 +1052,7 @@ def phase_slices(torch, dev, genome_len=4_600_000, max_round=60):
     log(f"[rowdp slice] RoundStats, contig bytes, votes and surviving reads equal the K1 "
         f"path's at round {rounds}")
     profile_rounds(torch, rowdp, "rowdp slice", PROFILED_ROUNDS["rowdp"])
-    return counts, kept, rowdp, genome, snap
+    return counts, kept, rowdp, genome, ref_round
 
 
 def phase_locate(torch, dev, rowdp, contig, counts, kept, n_consumed=1500, n_other=500,
@@ -1283,6 +1315,262 @@ def phase_contigs(torch, dev, replay=True):
     return counts, kept
 
 
+# the mesh path: the engine on 2 shards of one card for MESH_ROUNDS rounds of
+# the E. coli slice, held to the K1 slice's state at that round
+MESH_ROUNDS = 20
+MESH_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+WORKER = os.path.join("tests", "torch_multihost_worker.py")
+
+
+@contextlib.contextmanager
+def recorded(asm, at_round, copy_round=None):
+    """While the block runs: `asm`'s rounds timed and their launch logs
+    kept, its state_of after round `at_round`, and with `copy_round` its
+    reference's state dict after that round's commit, before the round's
+    evolve (instance attributes over the engine's run_round and its
+    reference's evolve). The copy's seconds are kept in rec["untimed"]
+    under its round and left out of rec["round_s"]; run_slice leaves them
+    out of the round's metrics too."""
+    rec = {"round_s": [], "launches": [], "untimed": {}}
+    real_round, real_evolve = asm.run_round, asm.ref.evolve
+
+    def evolve():
+        if asm.nround == copy_round:
+            t0 = time.perf_counter()
+            rec["pre_evolve"] = asm.ref.state_dict()
+            rec["untimed"][asm.nround] = time.perf_counter() - t0
+        return real_evolve()
+
+    def run_round(log=None):
+        t0 = time.perf_counter()
+        stats = real_round(log=log)
+        rec["round_s"].append(time.perf_counter() - t0 - rec["untimed"].get(asm.nround, 0.0))
+        rec["launches"] += asm.launch_log
+        if asm.nround == at_round:
+            rec["state"] = state_of(asm)
+        return stats
+
+    ref = asm.ref
+    asm.run_round, ref.evolve = run_round, evolve
+    try:
+        yield rec
+    finally:
+        del asm.run_round, ref.evolve
+
+
+def mesh_engine(torch, dev, reads, patterns, genome_len, want, single_s, kept, counts,
+                **shared):
+    """Step 1 of the mesh phase: the engine on a 2-shard mesh of the card,
+    MESH_ROUNDS rounds, its state equal to the K1 slice's at that round."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+    from pacbioassembly_tpu_torch.parallel import make_mesh
+
+    cfg = AssemblyConfig(engine="batch", rng_seed=7, pattern_schedule="roundrobin",
+                         max_round=MESH_ROUNDS, max_seq_len=genome_len + 500_000)
+    mesh = make_mesh(devices=[dev, dev])
+    asm = BatchAssembler(cfg, reads, patterns, device=dev, mesh=mesh, **shared)
+    kept["mesh"] = MainPathInputs()
+    t0 = time.perf_counter()
+    with recorded(asm, MESH_ROUNDS) as rec:
+        _, counts["mesh"] = run_path(torch, "mesh", kept["mesh"], MESH_KERNELS,
+                                     lambda: asm.run(out=None))
+    wall = time.perf_counter() - t0
+    got = rec["state"]
+    if got["history"] != want["history"]:
+        first = next(r for r, (x, y) in enumerate(zip(got["history"], want["history"]), 1)
+                     if x != y)
+        raise AssertionError(f"[mesh] round {first}: RoundStats {got['history'][first - 1]} on "
+                             f"the mesh, {want['history'][first - 1]} on one device")
+    if not same_state(got, want):
+        raise AssertionError(f"[mesh] the state at round {MESH_ROUNDS} differs from the K1 "
+                             f"slice's (every round's RoundStats equal)")
+    ll = rec["launches"]
+    by_kind = {k: sum(e["kind"] == k for e in ll) for k in ("pf", "fs", "tbp", "elect")}
+    elect_dev = sorted({e["shape"][3] for e in ll if e["kind"] == "elect"})
+    # each screening launch split into two shards: one K1 full screen each
+    if counts["mesh"]["bitwave_fullscreen"] != 2 * by_kind["fs"] or elect_dev != [2]:
+        raise AssertionError(f"[mesh] the round did not take the mesh path: {by_kind}, "
+                             f"{counts['mesh']}, elect n_dev {elect_dev}")
+    rs, ss = np.array(rec["round_s"]), np.array(single_s[:MESH_ROUNDS])
+    log(f"[mesh] {mesh}: {asm.nround} rounds in {wall:.1f} s, contig {asm.ref.length()} bp, "
+        f"{len(reads) - len(asm.surviving)} reads consumed; RoundStats, contig bytes, "
+        f"sel/sup/total and surviving reads equal the K1 slice's at round {MESH_ROUNDS}")
+    log(f"[mesh] launches: fs {by_kind['fs']} (K1 full screens "
+        f"{counts['mesh']['bitwave_fullscreen']}: two shards each), pf {by_kind['pf']}, tbp "
+        f"(K2 + W from the goals) {by_kind['tbp']}, elect {by_kind['elect']} (n_dev {elect_dev})")
+    log(f"[mesh] s/round p50 {np.percentile(rs, 50):.4f} p95 {np.percentile(rs, 95):.4f} on the "
+        f"mesh; rounds 1-{len(ss)} of the K1 slice (one device) p50 {np.percentile(ss, 50):.4f} "
+        f"p95 {np.percentile(ss, 95):.4f}")
+
+
+def mesh_two_process(torch, dev, port):
+    """Step 2: two gloo ranks on 127.0.0.1, two shards each on the card;
+    every rank's sharded screen and summed elect equal the serial port."""
+    from pacbioassembly_tpu_torch.align.bitwave import batch_score_bitwave
+    from pacbioassembly_tpu_torch.consensus.elect import elect_packed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            tcp = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(port, WORKER), str(tcp), str(r),
+                                   tmp, f"{dev.type}:0"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                _, err = p.communicate(timeout=180)
+                if p.returncode != 0:
+                    raise AssertionError(f"[mesh:2 processes] rank {r} exited {p.returncode}: "
+                                         f"{err.decode(errors='replace')[-2000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"proc{r}.npz"))) for r in range(2)]
+    x = ranks[0]
+    ts = [torch.from_numpy(x[f"in_{k}"]).to(dev) for k in ("ops", "vals", "start", "fwd", "en")]
+    serial = elect_packed(*ts, int(x["in_L"])).cpu().numpy()
+    args = [torch.from_numpy(x[f"in_{k}"]).to(dev) for k in ("a", "la", "b", "lb")]
+    scores = batch_score_bitwave(*args, la_max=args[0].shape[1], w_max=int(x["in_W"]), ratio=0.3)
+    for r, res in enumerate(ranks):
+        votes = np.concatenate([res["sel"], res["sup"], res["total"][:, None]], 1)
+        if not np.array_equal(votes, serial) or any(
+                not np.array_equal(res[f], getattr(scores, f).cpu().numpy()) for f in scores._fields):
+            raise AssertionError(f"[mesh:2 processes] rank {r} differs from the serial port")
+    log(f"[mesh:2 processes] 2 gloo ranks x 2 shards on {ranks[0]['devices'][0]} "
+        f"({list(ranks[0]['devices'])}): sharded_elect and sharded_screen equal the serial port "
+        f"on both ranks ({int(scores.accept.sum())} of {len(scores.accept)} pairs accepted); "
+        f"{wall:.1f} s with the processes' start-up; NCCL and cards on two hosts are not exercised")
+
+
+def mesh_modules(torch, dev, contig, pattern, pre_evolve, at_round):
+    """Step 3: the remaining modules on the card against their plain
+    versions: the traceback (K1, K2, W) against its CPU run, the word-array
+    screen against K1, and the device twins of the seed index and the
+    evolve on the K1 slice's contig and reference at `at_round`."""
+    from pacbioassembly_tpu_torch.align.bitscan import batch_score_bp
+    from pacbioassembly_tpu_torch.align.bitwave import batch_score_bitwave
+    from pacbioassembly_tpu_torch.align.screen import size_bucket
+    from pacbioassembly_tpu_torch.align.traceback import batch_align_traceback
+    from pacbioassembly_tpu_torch.consensus import ConsensusRef
+    from pacbioassembly_tpu_torch.consensus.device import evolve_on_device
+    from pacbioassembly_tpu_torch.index import build_seedmap
+    from pacbioassembly_tpu_torch.index.device import device_build_seedmap, device_lookup
+
+    def host_ms(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    rng = np.random.default_rng(7)
+    LB, LA, W = size_bucket(2048, 0.3)
+    batch = make_pairs(rng, 32, LB, LA, random_share=0.0)
+    rows = min(LA, -(-int(batch[1].max()) // 512) * 512)
+    kw = dict(la_max=LA, w_max=W, ratio=0.3, rows_max=rows)
+    cpu_ms, want = host_ms(lambda: batch_align_traceback(*(torch.from_numpy(x) for x in batch),
+                                                         **kw))
+    card = tuple(torch.from_numpy(x).to(dev) for x in batch)
+    batch_align_traceback(*card, **kw)
+    ms, got = timed(torch, lambda x: batch_align_traceback(*x, **kw), card)
+    if any(not torch.equal(getattr(got.scores, f).cpu(), getattr(want.scores, f))
+           for f in want.scores._fields) or any(
+            not torch.equal(getattr(got, f).cpu(), getattr(want, f)) for f in ("ops", "vals", "nedit")):
+        raise AssertionError("[mesh:modules] batch_align_traceback on the card != its CPU run")
+    log(f"[mesh:modules] batch_align_traceback (K1 -> K2 -> W) B=32 LA={LA} W={W} rows={rows} "
+        f"E={got.ops.shape[1]}: card == cpu ({int(want.scores.accept.sum())} accepted); card "
+        f"{ms:.3f} ms, the plain versions on the host {cpu_ms:.1f} ms")
+
+    LB, LA, W = size_bucket(1024, 0.3)
+    card = tuple(torch.from_numpy(x).to(dev) for x in make_pairs(rng, 1024, LB, LA))
+    kw = dict(la_max=LA, w_max=W, ratio=0.3)
+    k1_ms, k1 = timed(torch, lambda x: batch_score_bitwave(*x, **kw), card)
+    bp_ms, bp = timed(torch, lambda x: batch_score_bp(*x, **kw), card)
+    if max_err(torch, bp, k1) != 0:
+        raise AssertionError("[mesh:modules] bitscan.batch_score_bp on the card != K1")
+    log(f"[mesh:modules] bitscan.batch_score_bp B=1024 LA={LA} W={W}: == K1 field by field "
+        f"({int(k1.accept.sum())} accepted); torch ops on the card {bp_ms:.1f} ms, K1 "
+        f"{k1_ms:.3f} ms")
+
+    L = len(contig)
+    host_idx_ms, (host, _) = host_ms(build_seedmap, contig, pattern)
+    codes = torch.from_numpy(contig).to(dev)
+    device_build_seedmap(codes, L, pattern)
+    dev_idx_ms, idx = host_ms(device_build_seedmap, codes, L, pattern)
+    n = int(idx.n_entries)
+    q = np.concatenate([host.keys[:: max(1, len(host.keys) // 20000)],
+                        rng.integers(1, 1 << 32, 20000, dtype=np.uint64)]).astype(np.uint32)
+    q = q & np.uint32(pattern)
+    host_lk_ms, (lo_h, cnt_h) = host_ms(host.lookup_batch, q)
+    qd = torch.from_numpy(q.astype(np.int64)).to(dev)
+    dev_lk_ms, (lo, cnt) = host_ms(device_lookup, idx, qd)
+    hit = cnt_h > 0
+    if not (n == host.n_entries
+            and np.array_equal(idx.keys[-n:].cpu().numpy(), host.keys.astype(np.int64))
+            and np.array_equal(idx.positions[-n:].cpu().numpy(), host.positions)
+            and np.array_equal(cnt.cpu().numpy(), cnt_h)
+            and np.array_equal((lo.cpu().numpy() - (len(idx.keys) - n))[hit], lo_h[hit])):
+        raise AssertionError("[mesh:modules] the device seed index != the host index")
+    log(f"[mesh:modules] device_build_seedmap of the round-{at_round} contig ({L} bp, {n} "
+        f"entries) == host build_seedmap: card {dev_idx_ms:.2f} ms, host {host_idx_ms:.2f} ms "
+        f"(wall, the upload outside); device_lookup of {len(q)} queries ({int(hit.sum())} hits) "
+        f"== host lookup_batch: card {dev_lk_ms:.2f} ms, host {host_lk_ms:.2f} ms")
+
+    Lr = len(pre_evolve["codes"])
+    refs = [ConsensusRef.from_state_dict(pre_evolve, capacity=6 * Lr + 1024) for _ in range(2)]
+    host_ev_ms, _ = host_ms(refs[0].evolve)
+    dev_ev_ms, _ = host_ms(evolve_on_device, refs[1], dev)
+    if not (np.array_equal(refs[1].text(), refs[0].text()) and all(
+            np.array_equal(getattr(refs[1], f)[refs[1].pre : refs[1].post],
+                           getattr(refs[0], f)[refs[0].pre : refs[0].post])
+            for f in ("sel", "sup", "total"))):
+        raise AssertionError("[mesh:modules] evolve_on_device != the host evolve")
+    log(f"[mesh:modules] evolve_on_device of the round-{at_round} reference before its evolve "
+        f"({Lr} -> {refs[0].length()} boxes) == host ConsensusRef.evolve (full path): card "
+        f"{dev_ev_ms:.2f} ms with the copies, host {host_ev_ms:.2f} ms")
+
+
+def phase_mesh(torch, dev, port, reads, patterns, genome_len, ref_round, kept, counts,
+               **shared):
+    """The mesh phase (9): the engine on a 2-shard mesh of the card held to
+    the K1 slice (`ref_round`: its recorded state, round times, contig and
+    pre-evolve reference), the two-process collectives, and the remaining
+    modules against their plain versions."""
+    t0 = time.perf_counter()
+    mesh_engine(torch, dev, reads, patterns, genome_len, ref_round["state"],
+                ref_round["round_s"], kept, counts, **shared)
+    t1 = time.perf_counter()
+    mesh_two_process(torch, dev, port)
+    t2 = time.perf_counter()
+    mesh_modules(torch, dev, ref_round["contig"], patterns[0], ref_round["pre_evolve"],
+                 ref_round["at"])
+    log(f"[mesh] phase: engine {t1 - t0:.1f} s, two processes {t2 - t1:.1f} s, modules "
+        f"{time.perf_counter() - t2:.1f} s")
+
+
+def phase_mesh_only(torch, dev, port, genome_len=4_600_000):
+    """Only the mesh phase (--mesh-path): the K1 slice for MESH_ROUNDS
+    rounds on one device as the reference (its round-MESH_ROUNDS contig
+    and reference for the modules), then the phase; the mesh path's kernel
+    variants against their plain versions."""
+    _, reads, patterns, _, k1 = slice_engine(torch, dev, genome_len, MESH_ROUNDS)
+    with recorded(k1, MESH_ROUNDS, copy_round=MESH_ROUNDS) as rec:
+        k1.run(out=None)
+    ref_round = dict(rec, contig=k1.ref.text().copy(), at=MESH_ROUNDS)
+    kept, counts = {}, {}
+    phase_mesh(torch, dev, port, reads, patterns, genome_len, ref_round, kept, counts,
+               trial_cache=k1._trial_cache, device_builder=k1._device_builder)
+    del k1
+    phase_main_path_kernels(torch, Results(float(nvidia_smi("clocks.max.sm").split()[0])),
+                            kept["mesh"], "mesh")
+
+
 ROUTES = {
     "bitwave": ("pacbioassembly_tpu_torch/csrc/bitwave.cu", "pacbioassembly_tpu/align/bitwave.py:148"),
     "rowdp": ("pacbioassembly_tpu_torch/csrc/wavefront.cu", "pacbioassembly_tpu/align/wavefront.py:67"),
@@ -1348,6 +1636,10 @@ def main() -> int:
     mode.add_argument("--contigs-path", action="store_true",
                       help="drive only the multi-contig path (phase 8), to compare two trees "
                            "of the port")
+    mode.add_argument("--mesh-path", action="store_true",
+                      help="drive only the mesh phase (9): the engine on 2 shards of the card "
+                           "against MESH_ROUNDS rounds of the K1 slice, the two-process "
+                           "collectives and the remaining modules")
     ap.add_argument("--parallel-commit", action="store_true",
                     help="with --k1-slice: the engine's two-thread host commit "
                          "(cfg.parallel_commit)")
@@ -1378,7 +1670,7 @@ def main() -> int:
     ptxas = thread_build(_build)
     log(f"[device] K1 thread build: {ptxas if ptxas else 'not measured (cached build)'}")
 
-    one_phase = args.kernels or args.k1_slice or args.k3_slice or args.contigs_path
+    one_phase = args.kernels or args.k1_slice or args.k3_slice or args.contigs_path or args.mesh_path
     if args.kernels:
         phase_kernels(torch, dev, Results(clock))
     elif args.k1_slice:
@@ -1387,15 +1679,20 @@ def main() -> int:
         phase_k3_slice_only(torch, dev)
     elif args.contigs_path:
         phase_contigs(torch, dev, replay=False)
+    elif args.mesh_path:
+        phase_mesh_only(torch, dev, os.path.abspath(args.port))
     else:
         for line in _build.ptxas_report:
             log(f"[device] ptxas {line}")
         res = Results(clock)
         phase_kernels(torch, dev, res)
         phase_kernel_shapes(torch, dev)
-        counts, kept, rowdp, genome, _ = phase_slices(torch, dev)
+        counts, kept, rowdp, genome, ref_round = phase_slices(torch, dev)
         phase_locate(torch, dev, rowdp, rowdp.ref.text().copy(), counts, kept)
         counts["contigs"], kept["contigs"] = phase_contigs(torch, dev)
+        phase_mesh(torch, dev, os.path.abspath(args.port), rowdp.reads, rowdp.patterns,
+                   len(genome), ref_round, kept, counts, trial_cache=rowdp._trial_cache,
+                   device_builder=rowdp._device_builder)
         seen = set()
         for path, k in kept.items():
             seen |= phase_main_path_kernels(torch, res, k, path)

@@ -23,10 +23,23 @@ CPU as the kernels' plain versions.
 Multi-contig assembly (`assemble_contigs`) restarts the engine on the
 surviving reads, as the JAX engine's does.
 
-Left out relative to the JAX engine: the multi-device mesh paths, the
-tunnel-retry loop, the first-seen-shape flags of the launch log (PyTorch
-compiles nothing per shape) and the XLA traceback path (commits always
-take parents + walk).
+The multi-device round (`mesh=`, parallel/) is one round with the
+single-device one: every full-screen launch pads its batch to
+ladder_size(B, 64 n) and splits it over the mesh's n shards
+(parallel/sharded.py::sharded_screen), and the elect pads its streams to
+ladder_size(N, 8 n) and sums the shards' deltas (sharded_elect_packed).
+The prefilter and the commit's parents + walk stay on the engine's
+device. Without `mesh=` the mesh is the engine's own device, one shard.
+The round's RoundStats equal the single-device round's, and its contig,
+votes, surviving reads and matches equal the JAX engine's multi-device
+run (tests/test_torch_mesh_engine.py).
+
+Left out relative to the JAX engine: the tunnel-retry loop, the
+first-seen-shape flags of the launch log (PyTorch compiles nothing per
+shape), and the multi-device round's other path: the JAX engine takes
+len(jax.devices()) > 1 shards by default and then skips the prefilter and
+the fused gather, packs screening launches on the host and re-runs commit
+chunks through align/traceback.py. The decisions are the same either way.
 """
 
 from __future__ import annotations
@@ -45,9 +58,10 @@ from ..align.screen import SCREEN_KERNELS, ladder_size, pad_batch, score_batch, 
 from ..codec import dna
 from ..config import AssemblyConfig, Constants
 from ..consensus import ConsensusRef
-from ..consensus.elect import elect_packed
 from ..device import resolve_device
 from ..index import SeedIndex, build_seedmap
+from ..parallel import Mesh, make_mesh
+from ..parallel.sharded import sharded_elect_packed, sharded_screen
 from ..utils import MetricsLogger, profiled
 from .checkpoint import load_checkpoint, save_checkpoint
 from .driver import RoundStats, init_reference
@@ -244,6 +258,7 @@ class BatchAssembler:
         device_builder=None,
         device: str | torch.device = "cuda",
         screen_kernel: str = "bitwave",
+        mesh: Optional[Mesh] = None,
     ):
         if not patterns:
             raise ValueError("no seed patterns")
@@ -251,6 +266,8 @@ class BatchAssembler:
             raise ValueError(f"unknown screening kernel {screen_kernel!r} (expected {SCREEN_KERNELS})")
         self.device = resolve_device(device)
         self.screen_kernel = screen_kernel
+        # the dp mesh: one shard on the engine's device unless given
+        self.mesh = mesh if mesh is not None else make_mesh(devices=[self.device])
         self.cfg = cfg
         self.reads = reads
         self.patterns = patterns
@@ -334,13 +351,11 @@ class BatchAssembler:
         la = np.minimum(la, LA).astype(np.int32)
         return a_mat, la, b_mat, lb
 
-    def _host_batch(self, cands, idxs, seg_len, ref_len, LB, LA, pad_to=None):
-        """Host-packed batch, padded (pad rows la=lb=1) and uploaded."""
+    def _host_batch(self, cands, idxs, seg_len, ref_len, LB, LA, pad_to):
+        """Host-packed batch, padded to pad_to rows (pad rows la=lb=1) and
+        uploaded."""
         a_mat, la, b_mat, lb = self._materialize(cands, idxs, seg_len, ref_len, LB, LA)
-        quantum = pad_to or 64
-        (a_mat, b_mat), la, lb, _ = pad_batch(
-            [a_mat, b_mat], la, lb, quantum, ladder=pad_to is None
-        )
+        (a_mat, b_mat), la, lb, _ = pad_batch([a_mat, b_mat], la, lb, pad_to, ladder=False)
         dev = self.device
         return (
             torch.from_numpy(a_mat).to(dev), torch.from_numpy(la.astype(np.int32)).to(dev),
@@ -450,31 +465,32 @@ class BatchAssembler:
         for lo in range(0, len(idxs_all), SCREEN_CHUNK):
             idxs = idxs_all[lo : lo + SCREEN_CHUNK]
             LB, LA, W = size_bucket(int(seg_len[idxs[0]]), cfg.ratio)
-            Bp = ladder_size(len(idxs))
+            # a row a shard or more: the ladder's quantum times the shards
+            Bp = ladder_size(len(idxs), 64 * self.mesh.size)
             if builder is not None:
                 vecs = self._device_vectors(cands, idxs, ref_len, LA, Bp)
-                packed = _timed_launch(
-                    self.launch_log, "fs", (Bp, LA, LB, W, self._win_ladder()),
-                    lambda: builder.score(
-                        self.ref, *vecs, LA=LA, LB=LB, w_max=W,
-                        ratio=cfg.ratio, kind="fullscreen",
-                        screen_kernel=self.screen_kernel,
-                    ),
-                )
-                acc = packed[:, 0] != 0
-                ma, rows_all, mb = packed[:, 1], packed[:, 2], packed[:, 3]
+                kind, shape = "fs", (Bp, LA, LB, W, self._win_ladder())
             else:
-                def host_score():
-                    a, la, b, lb = self._host_batch(cands, idxs, seg_len, ref_len, LB, LA)
-                    res = score_batch(
-                        a, la, b, lb, screen_kernel=self.screen_kernel, kind="fullscreen",
-                        la_max=LA, w_max=W, ratio=cfg.ratio,
-                    )
-                    return [x.cpu().numpy() for x in res]
+                vecs = None
+                kind, shape = "fs_host", (Bp, LA, LB, W)
 
-                acc, _, ma, mb, _, rows_all = _timed_launch(
-                    self.launch_log, "fs_host", (Bp, LA, LB, W), host_score
+            def launch():
+                if vecs is not None:
+                    batch = builder.materialize(self.ref, *vecs, LA, LB)
+                else:
+                    batch = self._host_batch(cands, idxs, seg_len, ref_len, LB, LA, pad_to=Bp)
+                res = sharded_screen(
+                    self.mesh, *batch, la_max=LA, w_max=W, ratio=cfg.ratio,
+                    screen_kernel=self.screen_kernel,
                 )
+                # one fetch: [accept, matlen_a, dp_rows, matlen_b]
+                return torch.stack(
+                    [res.accept.to(torch.int32), res.matlen_a, res.dp_rows, res.matlen_b], 1
+                ).cpu().numpy()
+
+            packed = _timed_launch(self.launch_log, kind, shape, launch)
+            acc = packed[:, 0] != 0
+            ma, rows_all, mb = packed[:, 1], packed[:, 2], packed[:, 3]
             ok = acc & (ma >= cfg.overlap_min)
             accept[idxs] = ok[: len(idxs)]
             self._scr_ma[idxs] = ma[: len(idxs)]
@@ -711,36 +727,33 @@ class BatchAssembler:
             bounds[k][1] = max(bounds[k][1], b[1])
 
         L = post0 - pre0
-        dev = self.device
+        n = self.mesh.size
         for members, (clo, chi) in zip(clusters, bounds):
             base = max(0, clo)
             span = min(chi, L) - base + 1
             Lc = ladder_size(span, 8192)
             N = len(members)
             E = int(max(nedits[m] for m in members))
-            ops_m = np.zeros((N, max(E, 1)), dtype=np.uint8)
-            vals_m = np.zeros((N, max(E, 1)), dtype=np.uint8)
-            start = np.zeros(N, dtype=np.int32)
-            fwd = np.zeros(N, dtype=bool)
+            # equal shards of streams, padded as the JAX engine pads
+            Np, Ep = (ladder_size(N, 8 * n), ladder_size(E, 256)) if n > 1 else (N, max(E, 1))
+            ops_m = np.zeros((Np, Ep), dtype=np.uint8)
+            vals_m = np.zeros((Np, Ep), dtype=np.uint8)
+            start = np.zeros(Np, dtype=np.int32)
+            fwd = np.zeros(Np, dtype=bool)
+            enabled = np.zeros(Np, dtype=bool)
             for row, m in enumerate(members):
                 _, ops, vals = pending[m]
                 ops_m[row, : len(ops)] = ops
                 vals_m[row, : len(vals)] = vals
                 start[row] = starts[m] - base
                 fwd[row] = fwds[m]
+                enabled[row] = True
 
             def elect():
-                delta = elect_packed(
-                    torch.from_numpy(ops_m).to(dev),
-                    torch.from_numpy(vals_m).to(dev),
-                    torch.from_numpy(start).to(dev),
-                    torch.from_numpy(fwd).to(dev),
-                    torch.ones(N, dtype=torch.bool, device=dev),
-                    Lc,
-                )
-                return delta.cpu().numpy()
+                args = [torch.from_numpy(x) for x in (ops_m, vals_m, start, fwd, enabled)]
+                return sharded_elect_packed(self.mesh, *args, Lc).cpu().numpy()
 
-            packed = _timed_launch(self.launch_log, "elect", (Lc, N, E), elect)
+            packed = _timed_launch(self.launch_log, "elect", (Lc, Np, Ep, n), elect)
             w = min(span, L - base)
             o = pre0 + base
             ref.sel[o : o + w] += packed[:w, 0:4]

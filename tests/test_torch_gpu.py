@@ -1,12 +1,15 @@
 """Port on the card: each CUDA kernel (csrc/) against its plain PyTorch
 version on the same CUDA tensors, bit for bit, and the engine, multi-contig
 assembly, read accounting and `assemble --contigs` on `cuda` against the
-same on `cpu`. Marked `gpu`; skips without CUDA. Imports
+same on `cpu`; the engine on a 2-shard mesh on the card against its
+single-device round, the two-process collectives, the traceback, the
+word-array screen and the device twins. Marked `gpu`; skips without CUDA. Imports
 no jax, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import io
 import os
 import tempfile
@@ -647,3 +650,140 @@ def test_walk_kernel_on_a_batch_of_edge_planes_equals_plain(cuda):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert int(want[2].max()) == E
+
+
+def _two_device_store():
+    """chip_smoke.py's cuda == cpu store: 60 kb at 12x, mean read 1,200, 3%
+    uniform error, seed 5."""
+    from pacbioassembly_tpu_torch.tools.simulate import split_error_rate
+
+    sub, ins, dele = split_error_rate(0.03, "uniform")
+    _, reads, _ = simulate(SimConfig(genome_len=60_000, coverage=12.0, mean_read_len=1200,
+                                     max_read_len=2000, sub_rate=sub, ins_rate=ins,
+                                     del_rate=dele, seed=5))
+    path = os.path.join(tempfile.mkdtemp(), "r.bin")
+    with open(path, "wb") as fh:
+        binary_io.write_records(fh, reads)
+    return path
+
+
+def test_mesh_engine_on_card_equals_single_device(cuda):
+    """The engine on a 2-shard mesh on one card (each full screen split
+    into two shards, the summed elect) reaches the single-device round's
+    RoundStats, contig, votes and surviving reads, through the kernels
+    only."""
+    from pacbioassembly_tpu_torch.parallel import make_mesh
+
+    path = _two_device_store()
+    cfg = AssemblyConfig(engine="batch", rng_seed=7, pattern_schedule="roundrobin",
+                         max_round=8, prefilter_min_batch=1)
+    pats = dna.load_patterns(SEEDS)
+    runs = {}
+    for name, mesh in (("single", None), ("mesh", make_mesh(devices=[cuda, cuda]))):
+        _build.reset_counts()
+        asm = BatchAssembler(cfg, ReadStore.from_file(path, cfg), pats, device=cuda, mesh=mesh)
+        kinds = set()
+        for _ in range(cfg.max_round):
+            asm.run_round()
+            kinds |= {e["kind"] for e in asm.launch_log}
+        runs[name] = (asm, kinds, dict(_build.LAUNCHES))
+    (s, _, _), (m, kinds, counts) = runs["single"], runs["mesh"]
+    assert s.mesh.size == 1 and m.mesh.size == 2
+    assert np.array_equal(m.ref.text(), s.ref.text()) and m.surviving == s.surviving
+    for f in ("sel", "sup", "total"):
+        assert np.array_equal(getattr(m.ref, f)[m.ref.beg : m.ref.end],
+                              getattr(s.ref, f)[s.ref.beg : s.ref.end]), f
+    assert [dataclasses.asdict(x) for x in m.history] == [dataclasses.asdict(x) for x in s.history]
+    assert {"pf", "fs", "tbp", "elect"} <= kinds
+    assert all(counts[k] > 0 for k in ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"))
+    assert all(counts[k] == 0 for k in _build.PLAIN)
+
+
+def test_traceback_on_card_equals_cpu(cuda):
+    from pacbioassembly_tpu_torch.align.traceback import batch_align_traceback
+
+    (A, las, Bm, lbs), LA, LB, W = _cases(11, 1024, 0.3, n=32)
+    kw = dict(la_max=LA, w_max=W, ratio=0.3, rows_max=1536)
+    cpu = batch_align_traceback(*batch_tensors(A, las, Bm, lbs), **kw)
+    before = dict(_build.LAUNCHES)
+    gpu = batch_align_traceback(*batch_tensors(A, las, Bm, lbs, cuda), **kw)
+    for f in ("bitwave_fullscreen", "tbwave", "walk"):
+        assert _build.LAUNCHES[f] == before[f] + 1, f
+    for f in cpu.scores._fields:
+        assert torch.equal(getattr(gpu.scores, f).cpu(), getattr(cpu.scores, f)), f
+    for f in ("ops", "vals", "nedit"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert int(cpu.scores.accept.sum()) >= 8
+
+
+def test_bitscan_on_card_equals_k1(cuda):
+    from pacbioassembly_tpu_torch.align.bitscan import batch_score_bp
+
+    (A, las, Bm, lbs), LA, LB, W = _cases(12, 256, 0.3)
+    x = batch_tensors(A, las, Bm, lbs, cuda)
+    got = batch_score_bp(*x, la_max=LA, w_max=W, ratio=0.3)
+    want = batch_score_bitwave(*x, la_max=LA, w_max=W, ratio=0.3)
+    assert got.accept.device.type == "cuda"
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).to(torch.int32), getattr(want, f).to(torch.int32)), f
+    assert 0 < int(want.accept.sum()) < len(las)
+
+
+def test_device_twins_on_card_equal_host(cuda):
+    from pacbioassembly_tpu_torch.consensus import ConsensusRef
+    from pacbioassembly_tpu_torch.consensus.device import evolve_on_device
+    from pacbioassembly_tpu_torch.index import build_seedmap
+    from pacbioassembly_tpu_torch.index.device import device_build_seedmap, device_lookup
+
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 4, 45_000).astype(np.uint8)
+    mask = dna.parse_pattern("111**111*11*1111")
+    host, _ = build_seedmap(codes, mask)
+    dev = device_build_seedmap(torch.from_numpy(codes).to(cuda), len(codes), mask)
+    n = int(dev.n_entries)
+    assert n == host.n_entries and dev.keys.device.type == "cuda"
+    assert np.array_equal(dev.keys[-n:].cpu().numpy(), host.keys.astype(np.int64))
+    assert np.array_equal(dev.positions[-n:].cpu().numpy(), host.positions)
+    q = np.concatenate([host.keys[::53], [12345, 0]]).astype(np.int64)
+    lo, cnt = device_lookup(dev, torch.from_numpy(q).to(cuda))
+    lo_h, cnt_h = host.lookup_batch(q.astype(np.uint32))
+    assert np.array_equal(cnt.cpu().numpy(), cnt_h)
+    hit = cnt_h > 0
+    assert np.array_equal((lo.cpu().numpy() - (len(dev.keys) - n))[hit], lo_h[hit])
+
+    refs = []
+    for _ in range(2):
+        r = np.random.default_rng(5)
+        ref = ConsensusRef(r.integers(0, 4, 3000).astype(np.uint8), capacity=3 * 8192,
+                           overlap_min=16)
+        k = ref.post - ref.pre
+        ref.sel[ref.pre : ref.post] = r.integers(0, 6, (k, 4))
+        ref.sup[ref.pre : ref.post] = np.where(r.random((k, 4)) < 0.15, r.integers(1, 6, (k, 4)), 0)
+        ref.total[ref.pre : ref.post] = r.integers(1, 8, k)
+        ref.mark_dirty(ref.pre, ref.post)
+        refs.append(ref)
+    refs[0].evolve()
+    evolve_on_device(refs[1], device=cuda)
+    assert np.array_equal(refs[1].text(), refs[0].text())
+    for f in ("sel", "sup", "total"):
+        assert np.array_equal(getattr(refs[1], f)[refs[1].pre : refs[1].post],
+                              getattr(refs[0], f)[refs[0].pre : refs[0].post]), f
+
+
+def test_two_process_mesh_on_card_equals_serial(cuda, tmp_path):
+    """Two gloo ranks, two shards each on the card: every rank's sharded
+    screen and summed elect equal the serial port on the card."""
+    from torch_multihost_worker import inputs, run_workers
+
+    r0, r1 = run_workers(tmp_path, device="cuda:0")
+    x = inputs()
+    ts = [torch.from_numpy(x[k]).to(cuda) for k in ("ops", "vals", "start", "fwd", "en")]
+    serial = elect_packed(*ts, x["L"]).cpu().numpy()
+    LA = x["a"].shape[1]
+    scores = batch_score_bitwave(*batch_tensors(x["a"], x["la"], x["b"], x["lb"], cuda),
+                                 la_max=LA, w_max=x["W"], ratio=0.3)
+    for r in (r0, r1):
+        assert list(r["devices"]) == ["cuda:0"] * 4
+        assert np.array_equal(np.concatenate([r["sel"], r["sup"], r["total"][:, None]], 1), serial)
+        for f in scores._fields:
+            assert np.array_equal(r[f], getattr(scores, f).cpu().numpy()), f

@@ -1,5 +1,5 @@
 """Port: the host layers the port keeps as its own copies (config, codec,
-align types/banded/dispatch, native pbcore, index/seedmap, consensus/state,
+align types/banded/dispatch/bitparallel, native pbcore, index/seedmap, consensus/state,
 assemble reads/checkpoint/driver, tools/simulate, tools/coverage,
 tools/fastx, utils/metrics) against
 their originals in the JAX package, on the same seeded numpy inputs. One
@@ -17,6 +17,7 @@ import pytest
 
 import pacbioassembly_tpu.align as jax_align
 import pacbioassembly_tpu.align.banded as jax_banded
+import pacbioassembly_tpu.align.bitparallel as jax_bitparallel
 import pacbioassembly_tpu.assemble as jax_assemble
 import pacbioassembly_tpu.assemble.checkpoint as jax_ckpt
 import pacbioassembly_tpu.codec as jax_codec
@@ -30,6 +31,7 @@ import pacbioassembly_tpu.tools.simulate as jax_simulate
 import pacbioassembly_tpu.utils.metrics as jax_metrics
 import pacbioassembly_tpu_torch.align as port_align
 import pacbioassembly_tpu_torch.align.banded as port_banded
+import pacbioassembly_tpu_torch.align.bitparallel as port_bitparallel
 import pacbioassembly_tpu_torch.assemble as port_assemble
 import pacbioassembly_tpu_torch.assemble.checkpoint as port_ckpt
 import pacbioassembly_tpu_torch.codec as port_codec
@@ -160,6 +162,18 @@ def check_exact_align_numpy():
         for ratio in (0.3, 0.15):
             hits += _same_result(port_banded.align_banded(a, b, ratio),
                                  jax_banded.align_banded(a, b, ratio))
+    assert hits >= 10
+
+
+def check_bitparallel():
+    """bp_score, the bit-parallel exactness root, on the fuzz pairs at
+    three ratios."""
+    hits = 0
+    for a, b in _fuzz_pairs():
+        for ratio in (0.3, 0.15, 0.45):
+            got = port_bitparallel.bp_score(a, b, ratio)
+            assert got == jax_bitparallel.bp_score(a, b, ratio)
+            hits += got is not None
     assert hits >= 10
 
 
@@ -338,6 +352,7 @@ CHECKS = {
     "seedmap": check_seedmap,
     "exact_align_native": check_exact_align_native,
     "exact_align_numpy": check_exact_align_numpy,
+    "bitparallel": check_bitparallel,
     "consensus": check_consensus,
     "simulate": check_simulate,
     "coverage": check_coverage,

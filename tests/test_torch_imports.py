@@ -1,8 +1,8 @@
 """Port: the package imports neither jax nor anything of the JAX package
 (checked in a fresh interpreter, since this test process has both loaded,
 and by parsing every source; the fresh interpreter also drives multi-contig
-assembly, its dedupe and read accounting, the coverage evaluation and the
-FASTA parser), it exports the JAX package's names, chip_smoke.py imports
+assembly, its dedupe and read accounting, the coverage evaluation, the
+FASTA parser, the engine on a 2-shard mesh and the device twins), it exports the JAX package's names, chip_smoke.py imports
 only the port, and
 nothing falls back silently: asking for a GPU without one, a device type
 the port does not run on, or a kernel build without nvcc raises."""
@@ -27,11 +27,15 @@ import torch
 torch.set_num_threads(1)
 import pacbioassembly_tpu_torch
 from pacbioassembly_tpu_torch import _build, device
-from pacbioassembly_tpu_torch.align import bitwave, scan, screen, tbwave, wavefront
+from pacbioassembly_tpu_torch.align import (bitparallel, bitscan, bitwave, scan, screen,
+                                             tbwave, traceback, wavefront)
 from pacbioassembly_tpu_torch.assemble import ReadStore, batch, gather
 from pacbioassembly_tpu_torch.codec import binary_io, dna
 from pacbioassembly_tpu_torch.config import AssemblyConfig
 from pacbioassembly_tpu_torch.consensus import elect
+from pacbioassembly_tpu_torch.consensus import device as consensus_device
+from pacbioassembly_tpu_torch.index import device as index_device
+from pacbioassembly_tpu_torch.parallel import make_mesh
 from pacbioassembly_tpu_torch.tools import cli, coverage, fastx, locate, postprocess
 from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 import chip_smoke
@@ -48,6 +52,15 @@ asm = batch.BatchAssembler(cfg, ReadStore.from_file(path, cfg),
                            [dna.parse_pattern("1111111111111111")], device="cpu")
 asm.run(out=io.StringIO())
 assert asm.nround == 2 and asm.ref.length() > 0
+mesh_asm = batch.BatchAssembler(cfg, ReadStore.from_file(path, cfg),
+                                [dna.parse_pattern("1111111111111111")], device="cpu",
+                                mesh=make_mesh(devices=["cpu"] * 2))
+mesh_asm.run(out=io.StringIO())
+assert mesh_asm.ref.text().tolist() == asm.ref.text().tolist()
+consensus_device.evolve_on_device(mesh_asm.ref, device="cpu")
+idx = index_device.device_build_seedmap(torch.from_numpy(mesh_asm.ref.text().copy()),
+                                        mesh_asm.ref.length(), 0xFFFFFFFF)
+assert int(idx.n_entries) > 0 and bitparallel.bp_score(genome[:200], genome[:200]) is not None
 rows, n = locate.map_reads(genome, dna.parse_pattern("1111111111111111"), reads[:6], 0.15,
                            device="cpu", screen_kernel="rowdp")
 assert n == 6 and len(rows) >= 3

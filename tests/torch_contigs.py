@@ -56,9 +56,13 @@ def assemble_contigs_both(store: str, dedupe: bool):
     surviving reads and logs, and returns the port's (contigs, surviving).
     The caller pins the JAX engine to one device. (The JAX imports stay in
     here: tests/test_torch_gpu.py imports this module without JAX.)"""
+    import difflib
     import io
 
+    import pytest
+
     from pacbioassembly_tpu.assemble import ReadStore as JaxReads
+    from pacbioassembly_tpu.assemble.batch import BatchAssembler as JaxAssembler
     from pacbioassembly_tpu.assemble.batch import assemble_contigs as jax_assemble_contigs
     from pacbioassembly_tpu.config import AssemblyConfig
     from pacbioassembly_tpu_torch.assemble.batch import assemble_contigs
@@ -68,9 +72,26 @@ def assemble_contigs_both(store: str, dedupe: bool):
     cfg = AssemblyConfig(**SETTINGS)
     patterns = dna.load_patterns(SEEDS)
     jlog, plog = io.StringIO(), io.StringIO()
-    want, want_surv = jax_assemble_contigs(
-        cfg, JaxReads.from_file(store, cfg), patterns, 4, log=jlog, dedupe=dedupe
-    )
+    # The JAX device builder keys its window cache on id(ref). Contigs 2 and
+    # 3 here are one-read contigs with equal windows, so a restart whose
+    # reference takes the freed previous one's address is served the previous
+    # contig's window (seen in a full parallel run: the JAX engine screened
+    # contig 3's first round against contig 2's window). Keeping every JAX
+    # engine's reference alive for the run keeps the addresses distinct; the
+    # port keys its cache on a weak reference (assemble/gather.py).
+    kept_refs = []
+    real_init = JaxAssembler.__init__
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        kept_refs.append(self.ref)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxAssembler, "__init__", init)
+        want, want_surv = jax_assemble_contigs(
+            cfg, JaxReads.from_file(store, cfg), patterns, 4, log=jlog, dedupe=dedupe
+        )
+    assert len(kept_refs) == 4
     pcfg = port_config(cfg)
     got, got_surv = assemble_contigs(
         pcfg, port_reads(store, pcfg), patterns, 4, log=plog, dedupe=dedupe, device="cpu"
@@ -79,6 +100,7 @@ def assemble_contigs_both(store: str, dedupe: bool):
         (c.codes.tolist(), c.nreads, c.nrounds) for c in want
     ]
     assert got_surv == want_surv
-    assert plog.getvalue() == jlog.getvalue()
+    assert plog.getvalue() == jlog.getvalue(), "\n".join(difflib.unified_diff(
+        jlog.getvalue().splitlines(), plog.getvalue().splitlines(), "jax", "port", lineterm=""))
     assert plog.getvalue().count("=== dropping contig") == 2 * dedupe
     return got, got_surv
