@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
     python3 chip_smoke.py --contigs-path [--port DIR]   # only the multi-contig path of 8
     python3 chip_smoke.py --mesh-path [--port DIR]      # only the mesh phase of 9
+    python3 chip_smoke.py --genome [--out DIR [--resume]]  # the whole 4.6 Mb genome (15-40 minutes)
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
@@ -46,10 +47,10 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      it did not) mapped onto its contig, pattern 1 of seeds.txt, R=0.15,
      through K3 and through K1: equal TSVs, the first 100 reads equal the
      sequential host loop, residual error and wall time of each;
-  6. every kernel variant the paths of 3-5, 8 and 9 launched, held against
+  6. every kernel variant the paths of 3-5 and 8-10 launched, held against
      its plain version on the inputs of its first launches, at the paths'
      own shapes, and K3's variants at each of its launch shapes equal to the
-     wrapper's choice on those inputs (8 and 9 run before 6 and 7);
+     wrapper's choice on those inputs (8-10 run before 6 and 7);
   7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
      contig bytes, votes and surviving reads;
   8. multi-contig assembly through the CLI (`assemble --engine batch
@@ -83,7 +84,33 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      run, align/bitscan.py on the card == K1, and the device seed index and
      device evolve on the K1 slice's round-60 contig and reference (before
      its evolve) == the host build_seedmap / lookup_batch and evolve, each
-     timed beside the host function.
+     timed beside the host function;
+ 10. stall recovery: tests/torch_retreat.py's fixtures (a), the stall store
+     of tests/test_batch.py::test_edge_retreat_recovers_from_stall (its
+     weak fringe trimmed after round 19; 20 rounds), and (b), the fruitless
+     store of tests/test_batch.py::test_fruitless_retreat_escape (fixed
+     bites, then the fruitless escape), on the card and on the port's cpu:
+     equal RoundStats, contig bytes, votes, surviving reads, retreat
+     counters and logs; a trimmed fringe and a fixed bite on the card; K1's
+     full screen, K2 and W must have launched, no plain version (phase 6
+     replays this path's variants too).
+
+`--genome` runs the whole-genome path alone: the E. coli store of 3 (4.6 Mb
+at 30x, 3% uniform error, seed 11), assembled as benchmarks/ecoli_scale.py
+ran the JAX package's committed run benchmarks/results/ecoli_wg_3pct_r5
+(random pattern schedule, rng_seed 7 + contig, stall recovery
+--edge-retreat 400 --retreat-bite 96 --retreat-min-len 20000
+--retreat-fruitless 3, up to 64 contigs sharing the trial cache and the
+device builder, checkpoints every 50 rounds), every round held to the
+committed metrics on nround, pattern, ref_len, nmatches, ntrials,
+nreads_left and retreats (the first divergent round stops the run and
+prints both rows; the other fields print where they differ). Then contig 0
+byte for byte against the committed contig, the dedupe's dropped contigs,
+every read consumed, the residual error on the card and the coverage
+evaluation against the committed summary, and every kernel variant the
+run launched against its plain version. With `--out DIR` the checkpoints,
+metrics JSONL and engine log stay in DIR, and `--resume` goes on from its
+finished contigs and the current contig's round checkpoint.
 
 Kernel times are CUDA events: a kernel's is the min over fresh inputs of
 its wrapper's launches queued behind a spin kernel, so that the host's
@@ -631,10 +658,11 @@ class MainPathInputs:
             yield kernel, geom, sum(per_b.values()), B, self.inputs[(kernel, geom, B)]
 
 
-def run_path(torch, name, kept, used, fn):
+def run_path(torch, name, kept, used, fn, every=True):
     """Drive one path with every launch count set to 0 just before it and
-    read just after; the kernels in `used` must have launched, no other
-    kernel and no plain version. Returns (fn's result, counts)."""
+    read just after; the kernels in `used` must have launched (without
+    `every`, some of them), no other kernel and no plain version. Returns
+    (fn's result, counts)."""
     from pacbioassembly_tpu_torch import _build
 
     kept.install()
@@ -646,8 +674,9 @@ def run_path(torch, name, kept, used, fn):
     finally:
         kept.remove()
     ran = {k for k, v in counts.items() if v}
-    if ran != set(used):
-        raise AssertionError(f"[{name}] launched {sorted(ran)}, expected exactly {sorted(used)}: {counts}")
+    if ran != set(used) if every else not ran <= set(used):
+        raise AssertionError(f"[{name}] launched {sorted(ran)}, expected "
+                             f"{'exactly' if every else 'only'} {sorted(used)}: {counts}")
     log(f"[{name}] launches {{{', '.join(f'{k}: {counts[k]}' for k in sorted(ran))}}}, "
         f"every other kernel and every plain version 0")
     return out, counts
@@ -1571,6 +1600,414 @@ def phase_mesh_only(torch, dev, port, genome_len=4_600_000):
                             kept["mesh"], "mesh")
 
 
+# ----------------------------------------------- stall recovery (phase 10)
+
+# tests/torch_retreat.py's fixtures (a) and (b): the stall store of
+# tests/test_batch.py::test_edge_retreat_recovers_from_stall, cut one round
+# after its retreat (round 19), and the fruitless store of
+# tests/test_batch.py::test_fruitless_retreat_escape, whose retreats are
+# fixed bites until the fruitless escape ends the run
+STALL_KERNELS = ("bitwave_fullscreen", "tbwave", "walk")
+STALL_ROUNDS = 20
+
+
+def retreat_fixtures():
+    """[(name, ReadStore, patterns, config)] of fixtures (a) and (b)."""
+    from pacbioassembly_tpu_torch.assemble import ReadStore
+    from pacbioassembly_tpu_torch.codec import binary_io, dna
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+
+    def store(reads):
+        buf = io.BytesIO()
+        binary_io.write_records(buf, reads)
+        return ReadStore(np.frombuffer(buf.getvalue(), dtype=np.uint8))
+
+    _, stall, _ = simulate(SimConfig(genome_len=30_000, coverage=14.0, mean_read_len=800,
+                                     min_read_len=600, max_read_len=1000, sub_rate=0.05,
+                                     ins_rate=0.05, del_rate=0.05, seed=21))
+    rng = np.random.default_rng(0)
+    _, few, _ = simulate(SimConfig(genome_len=3000, coverage=3.0, mean_read_len=900,
+                                   min_read_len=600, max_read_len=1200, sub_rate=0.01,
+                                   ins_rate=0.01, del_rate=0.01, seed=1))
+    junk = [rng.integers(0, 4, 800).astype(np.uint8) for _ in range(3)]
+    return [
+        ("stall", store(stall), dna.load_patterns(SEEDS),
+         AssemblyConfig(engine="batch", rng_seed=5, pattern_schedule="random", edge_retreat=8,
+                        max_round=STALL_ROUNDS)),
+        ("fruitless", store(few + junk), [dna.parse_pattern("1111111111111111")],
+         AssemblyConfig(engine="batch", rng_seed=0, pattern_schedule="roundrobin",
+                        edge_retreat=50, edge_retreat_bite=8, edge_retreat_fruitless=2)),
+    ]
+
+
+@contextlib.contextmanager
+def retreat_spy():
+    """While the block runs: the cells each ConsensusRef.retreat_edges and
+    retreat_fixed call trimmed."""
+    from pacbioassembly_tpu_torch.consensus.state import ConsensusRef
+
+    trims = {"edges": [], "fixed": []}
+    real = {k: getattr(ConsensusRef, f"retreat_{k}") for k in trims}
+
+    def spy(kind):
+        def call(self, *a, **kw):
+            trims[kind].append(real[kind](self, *a, **kw))
+            return trims[kind][-1]
+        return call
+
+    for k in trims:
+        setattr(ConsensusRef, f"retreat_{k}", spy(k))
+    try:
+        yield trims
+    finally:
+        for k in trims:
+            setattr(ConsensusRef, f"retreat_{k}", real[k])
+
+
+def run_fixture(asm) -> dict:
+    """state_of(asm) after its run, with its retreat counters and log."""
+    out = io.StringIO()
+    asm.run(out=None, log=out)
+    return dict(state_of(asm), log=out.getvalue(),
+                counters=(asm.nround, asm.nfailure, asm.retreats, asm.fruitless_retreats,
+                          asm.matches_since_retreat))
+
+
+def phase_stall(torch, dev, kept, counts):
+    """Phase 10: fixtures (a) and (b) on the card and on the port's cpu,
+    equal; a retreat and a fixed bite on the card; K1's full screen, K2 and
+    W launch, no plain version."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+
+    t0 = time.perf_counter()
+    fixtures = retreat_fixtures()
+    kept["stall"] = MainPathInputs()
+
+    def on_card():
+        return {name: run_fixture(BatchAssembler(cfg, reads, patterns, device=dev))
+                for name, reads, patterns, cfg in fixtures}
+
+    with retreat_spy() as trims:
+        card, counts["stall"] = run_path(torch, "stall", kept["stall"], STALL_KERNELS, on_card)
+    t1 = time.perf_counter()
+    if not (any(trims["edges"]) and any(trims["fixed"])):
+        raise AssertionError(f"[stall] no trimmed fringe or no fixed bite on the card: {trims}")
+    for name, reads, patterns, cfg in fixtures:
+        got, want = card[name], run_fixture(BatchAssembler(cfg, reads, patterns, device="cpu"))
+        if not (same_state(got, want) and got["log"] == want["log"]
+                and got["counters"] == want["counters"]):
+            raise AssertionError(f"[stall] {name}: cuda != cpu")
+        lines = [ln for ln in got["log"].splitlines() if ln.startswith("--- edge retreat")]
+        nround, _, retreats, fruitless, _ = got["counters"]
+        log(f"[stall] {name}: {nround} rounds, contig {len(got['contig'])} bp, {retreats} "
+            f"retreats ({fruitless} fruitless), {lines[-1] if lines else 'no retreat'}; "
+            f"RoundStats, contig bytes, votes, surviving reads, counters and log equal on cuda "
+            f"and cpu")
+    log(f"[stall] cells trimmed on the card: fringe {trims['edges']}, fixed bites "
+        f"{trims['fixed']}; phase {time.perf_counter() - t0:.1f} s (card {t1 - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------- --genome
+
+# the JAX package's whole-genome run that the genome mode is held to
+# (benchmarks/results/): its per-round metrics, contig 0 and summary
+GENOME_RUN = os.path.join(REPO, "benchmarks", "results", "ecoli_wg_3pct_r5")
+GENOME_CONTIGS = 64
+# benchmarks/ecoli_scale.py's config with that run's flags (--contigs 64
+# --edge-retreat 400 --retreat-bite 96 --retreat-min-len 20000
+# --retreat-fruitless 3, uncapped rounds)
+GENOME_CONFIG = dict(engine="batch", rng_seed=7, pattern_schedule="random",
+                     dedupe_diagonals=True, edge_retreat=400, edge_retreat_bite=96,
+                     edge_retreat_min_len=20_000, edge_retreat_fruitless=3, max_trial=32,
+                     max_seq_len=5_100_000, checkpoint_every=50)
+GENOME_GATED = ("nround", "pattern", "ref_len", "nmatches", "ntrials", "nreads_left", "retreats")
+GENOME_SHOWN = ("prefilter_kept", "host_aligns", "device_commits", "fullscreen_n",
+                "seedmap_size", "dropped_candidates")
+GENOME_PHASES = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s")
+GENOME_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+
+
+def committed_segments(path) -> list[dict]:
+    """A metrics JSONL as one {nround: row} per engine run (one contig)."""
+    segs = []
+    with open(path) as fh:
+        for line in fh:
+            r = json.loads(line)
+            if r["event"] == "run_start":
+                segs.append({})
+            elif r["event"] == "round":
+                segs[-1][r["nround"]] = r
+    return segs
+
+
+@contextlib.contextmanager
+def gated_rounds(want, rows, diffs, every=100):
+    """While the block runs, each round an engine writes to its metrics
+    (MetricsLogger.round) is appended to rows[-1], one list per contig, and
+    held to the same round of want[len(rows) - 1] on GENOME_GATED: the first
+    divergent round raises with both rows. The GENOME_SHOWN fields that
+    differ go to `diffs`. Every `every` rounds a progress line."""
+    from pacbioassembly_tpu_torch.utils import metrics
+
+    real = metrics.MetricsLogger.round
+    t0 = time.perf_counter()
+
+    def gated(self, stats, extra=None):
+        rec = real(self, stats, extra)
+        ci = len(rows) - 1
+        rows[ci].append(rec)
+        ref = (want[ci] if ci < len(want) else {}).get(rec["nround"])
+        if ref is None or any(rec[k] != ref[k] for k in GENOME_GATED):
+            raise AssertionError(
+                f"[genome] contig {ci} round {rec['nround']} diverges from "
+                f"{os.path.basename(GENOME_RUN)} on {GENOME_GATED}:\n  port: {json.dumps(rec)}\n"
+                f"  committed: {json.dumps(ref)}")
+        d = {k: [rec.get(k), ref.get(k)] for k in GENOME_SHOWN if rec.get(k) != ref.get(k)}
+        if d:
+            diffs.append(dict(contig=ci, nround=rec["nround"], **d))
+        if rec["nround"] % every == 0:
+            log(f"[genome] contig {ci} round {rec['nround']}: ref_len {rec['ref_len']}, "
+                f"{rec['nreads_left']} reads left, retreats {rec['retreats']}, "
+                f"{time.perf_counter() - t0:.1f} s into this run")
+        return rec
+
+    metrics.MetricsLogger.round = gated
+    try:
+        yield
+    finally:
+        metrics.MetricsLogger.round = real
+
+
+class EngineLog:
+    """The engines' log, appended to a file; retreat lines echoed."""
+
+    def __init__(self, path):
+        self.fh = open(path, "a")
+
+    def write(self, s):
+        self.fh.write(s)
+        if s.startswith("--- edge retreat"):
+            log(f"[genome] {s.rstrip()}")
+
+    def close(self):
+        self.fh.close()
+
+
+def save_contigs(path, results, surviving):
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, codes=np.concatenate([c.codes for c in results]),
+             lens=np.array([len(c.codes) for c in results]),
+             nreads=np.array([c.nreads for c in results]),
+             nrounds=np.array([c.nrounds for c in results]),
+             surviving=np.array(surviving, dtype=np.int64))
+    os.replace(tmp, path)
+
+
+def load_contigs(path):
+    from pacbioassembly_tpu_torch.assemble.batch import ContigResult
+
+    z = np.load(path)
+    cuts = np.cumsum(z["lens"])[:-1]
+    results = [ContigResult(c.astype(np.uint8), int(n), int(r))
+               for c, n, r in zip(np.split(z["codes"], cuts), z["nreads"], z["nrounds"])]
+    return results, z["surviving"].astype(np.int64).tolist()
+
+
+def genome_assemble(torch, dev, out, resume, reads, patterns, cfg, n_contigs, want, kept):
+    """The per-contig loop of benchmarks/ecoli_scale.py on `dev`: up to
+    n_contigs engines at rng_seed + ci on the surviving reads, sharing the
+    trial cache and the device builder, each with its round checkpoint
+    out/ck_<ci>.npz (resumed with `resume`); the finished contigs go to
+    out/wg_state.npz and their records to out/wg_contigs.json after each
+    one. Every round is held to `want` (gated_rounds). Returns (contigs,
+    surviving reads, records of every contig, the SHOWN differences)."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler, ContigResult
+
+    state, info = os.path.join(out, "wg_state.npz"), os.path.join(out, "wg_contigs.json")
+    results, surviving, records = [], None, []
+    if resume and os.path.exists(state):
+        results, surviving = load_contigs(state)
+        with open(info) as fh:
+            records = json.load(fh)
+        log(f"[genome] resuming after {len(results)} contigs ({len(surviving)} reads left)")
+    rows, diffs = [[] for _ in results], []
+    cache = builder = None
+    engine_log = EngineLog(os.path.join(out, "engine.log"))
+    try:
+        with gated_rounds(want, rows, diffs):
+            for ci in range(len(results), n_contigs):
+                if surviving is not None and not surviving:
+                    break
+                ck = os.path.join(out, f"ck_{ci}.npz")
+                resumed = resume and os.path.exists(ck)
+                c = dataclasses.replace(cfg, rng_seed=cfg.rng_seed + ci, checkpoint_path=ck,
+                                        resume_path=ck if resumed else None)
+                asm = BatchAssembler(c, reads, patterns, surviving=surviving, trial_cache=cache,
+                                     device_builder=builder, device=dev)
+                before = len(asm.surviving)
+                rows.append([])
+                t0 = time.perf_counter()
+                asm.run(out=None, log=engine_log)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if asm.nround != max(want[ci]):
+                    raise AssertionError(f"[genome] contig {ci} ended at round {asm.nround}, the "
+                                         f"committed run's at round {max(want[ci])}")
+                results.append(ContigResult(codes=asm.ref.text().copy(),
+                                            nreads=before - len(asm.surviving),
+                                            nrounds=asm.nround))
+                rs = [r["round_s"] for r in rows[-1]]
+                records.append(dict(
+                    contig=ci, len=len(results[-1].codes), reads=results[-1].nreads,
+                    rounds=asm.nround, rounds_here=len(rs), resumed=resumed, wall_s=wall,
+                    round_s_p50=float(np.percentile(rs, 50)),
+                    round_s_p95=float(np.percentile(rs, 95)), retreats=asm.retreats,
+                    card_mib=(torch.cuda.memory_allocated() - kept.nbytes) / 2**20,
+                    **{k: float(sum(r.get(k, 0.0) for r in rows[-1])) for k in GENOME_PHASES}))
+                r = records[-1]
+                log(f"[genome] contig {ci}: {r['len']} bp from {r['reads']} reads in "
+                    f"{r['rounds']} rounds ({r['rounds_here']} in this run), {wall:.1f} s; "
+                    f"s/round p50 {r['round_s_p50']:.4f} p95 {r['round_s_p95']:.4f}; "
+                    f"{r['retreats']} retreats; card memory allocated after it "
+                    f"{r['card_mib']:.1f} MiB; phases " + ", ".join(
+                        f"{k} {r[k]:.1f}" for k in GENOME_PHASES))
+                surviving = asm.surviving
+                cache, builder = asm._trial_cache, asm._device_builder
+                del asm
+                save_contigs(state, results, surviving)
+                with open(info, "w") as fh:
+                    json.dump(records, fh)
+                if os.path.exists(ck):
+                    os.remove(ck)  # the contig is finished; its round checkpoint is obsolete
+    finally:
+        engine_log.close()
+    with open(os.path.join(out, "shown_differences.jsonl"), "a") as fh:
+        for d in diffs:
+            fh.write(json.dumps(d) + "\n")
+    return results, surviving, records, diffs
+
+
+def genome_gates(torch, dev, genome, reads, patterns, results, surviving, kept):
+    """The end gates against the committed run: contig 0 byte for byte,
+    the contigs built and dropped, every read consumed, the residual error
+    (on the card) and the coverage evaluation. Returns the residual and the
+    evaluation."""
+    import gzip
+
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.tools import coverage, locate
+    from pacbioassembly_tpu_torch.tools.postprocess import dedupe_contigs
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+
+    with open(GENOME_RUN + "_summary.json") as fh:
+        summary = json.load(fh)
+    with gzip.open(GENOME_RUN + "_contig0.txt.gz", "rt") as fh:
+        contig0 = dna.text_to_codes(fh.read().strip())
+    got0 = results[0].codes
+    if not np.array_equal(got0, contig0):
+        n = min(len(got0), len(contig0))
+        first = int(np.argmax(got0[:n] != contig0[:n])) if (got0[:n] != contig0[:n]).any() else n
+        raise AssertionError(f"[genome] contig 0 ({len(got0)} bp) != the committed contig "
+                             f"({len(contig0)} bp); first difference at {first}")
+    log(f"[genome] contig 0 == {os.path.basename(GENOME_RUN)}_contig0.txt.gz byte for byte "
+        f"({len(got0)} bp); the committed run took {summary['wall_s']} s on a TPU v5e (the JAX "
+        f"package)")
+    kept_idx, dropped = dedupe_contigs([c.codes for c in results])
+    for d in dropped:
+        d["len"] = len(results[d["idx"]].codes)
+    consumed = len(reads) - len(surviving)
+    log(f"[genome] {len(results)} contigs built, dedupe dropped {dropped}; {consumed} of "
+        f"{len(reads)} reads consumed")
+    committed = summary.get("contigs_dropped_contained", [])  # left out when none
+    if (dropped != committed or consumed != summary["reads_consumed"]
+            or len(reads) != summary["n_reads"]
+            or len(results) != len(dropped) + len(summary["contig_lens"])):
+        raise AssertionError(f"[genome] contigs or reads differ from the committed summary: "
+                             f"{committed}, "
+                             f"{summary['reads_consumed']} of {summary['n_reads']} consumed")
+    kept_codes = [results[i].codes for i in kept_idx]
+    best = max(kept_codes, key=len)
+    # benchmarks/ecoli_scale.py's residual: CCS-like reads at 2x, seed + 1
+    ccs = SimConfig(genome_len=len(genome), coverage=2.0, mean_read_len=2500,
+                    sub_rate=0.004, ins_rate=0.003, del_rate=0.003, seed=12)
+    _, ccs_reads, _ = simulate(ccs, genome=genome)
+    t0 = time.perf_counter()
+    q, _ = run_path(torch, "genome:residual", kept, ("bitwave_locate",),
+                    lambda: locate.residual_error(best, patterns[0], ccs_reads, 0.15, device=dev))
+    want_q = {k: summary["quality"][k] for k in
+              ("mapped", "total", "residual_error", "total_cost", "total_len")}
+    got_q = {k: q[k] for k in want_q}
+    log(f"[genome] residual error on the card ({time.perf_counter() - t0:.1f} s): {got_q}")
+    if got_q != want_q:
+        raise AssertionError(f"[genome] residual {got_q} != the committed {want_q}")
+    t0 = time.perf_counter()
+    ev = coverage.evaluate_assembly(genome, kept_codes)
+    want_ev = json.loads(json.dumps(summary["coverage_eval"]))
+    for c in want_ev["per_contig"]:
+        c.pop("residual_error", None)
+    got_ev = json.loads(json.dumps(ev))
+    log(f"[genome] evaluate_assembly ({time.perf_counter() - t0:.1f} s): genome covered "
+        f"{ev['genome_covered']}, fraction {ev['genome_fraction']}, intervals "
+        f"{[c['intervals'] for c in ev['per_contig']]}, N50 {ev['n50']}, misassemblies "
+        f"{ev['misassemblies']}, max break {ev['max_break']}")
+    if got_ev != want_ev:
+        raise AssertionError(f"[genome] coverage {got_ev} != the committed {want_ev}")
+    return got_q, ev
+
+
+def phase_genome(torch, dev, res, out, resume):
+    """The --genome mode: the 4.6 Mb E. coli 3% store, assembled with
+    stall recovery into up to GENOME_CONTIGS contigs on the card, held
+    round for round to the committed run, then its end gates and every
+    kernel variant it launched against its plain version."""
+    from pacbioassembly_tpu_torch.align.screen import ladder_size
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+
+    os.makedirs(out, exist_ok=True)
+    if not resume:
+        for f in os.listdir(out):
+            if f.startswith(("ck_", "wg_", "metrics", "engine", "shown_")):
+                os.remove(os.path.join(out, f))
+    t0 = time.perf_counter()
+    genome, reads = simulate_store(4_600_000, 30.0, 2500, 0.03, 11)
+    patterns = dna.load_patterns(SEEDS)
+    log(f"[genome] simulated 4.6 Mb @ 30x, 3% uniform error, seed 11: {len(reads)} reads in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = committed_segments(GENOME_RUN + "_metrics.jsonl")
+    cfg = AssemblyConfig(**GENOME_CONFIG, metrics_path=os.path.join(out, "metrics.jsonl"))
+    kept = MainPathInputs()
+    # a run from the first round launches every kernel of the path, a
+    # resumed one some of them
+    fresh = not (resume and any(f.startswith(("ck_", "wg_state")) for f in os.listdir(out)))
+    t0 = time.perf_counter()
+    (results, surviving, records, diffs), counts = run_path(
+        torch, "genome", kept, GENOME_KERNELS,
+        lambda: genome_assemble(torch, dev, out, resume, reads, patterns, cfg, GENOME_CONTIGS,
+                                want, kept),
+        every=fresh)
+    wall = time.perf_counter() - t0
+    mems = [r["card_mib"] for r in records]
+    window_mib = 2 * ladder_size(max(r["len"] for r in records), 8192) / 2**20
+    log(f"[genome] assembly wall {wall:.1f} s in this run, "
+        f"{sum(r['wall_s'] for r in records):.1f} s over the contigs of every run; "
+        f"{len(diffs)} rounds differ from the committed run only outside the gated fields"
+        + (f", first {diffs[:3]}" if diffs else ""))
+    if len(results) < len(want) or surviving:
+        raise AssertionError(f"[genome] {len(results)} contigs, {len(surviving)} reads left")
+    if max(mems) > mems[0] + window_mib:
+        raise AssertionError(f"[genome] the card's allocated memory grew from contig to contig: {mems}")
+    quality, ev = genome_gates(torch, dev, genome, reads, patterns, results, surviving, kept)
+    phase_main_path_kernels(torch, res, kept, "genome")
+    print(json.dumps({"genome": {
+        "contigs": records, "assembly_wall_s": sum(r["wall_s"] for r in records),
+        "shown_differences": len(diffs), "residual": quality,
+        "genome_covered": ev["genome_covered"], "misassemblies": ev["misassemblies"],
+        "launches": {k: counts[k] for k in GENOME_KERNELS},
+        "kernels": [r for r in res.rows if r.get("path") == "genome"]}}), flush=True)
+
+
 ROUTES = {
     "bitwave": ("pacbioassembly_tpu_torch/csrc/bitwave.cu", "pacbioassembly_tpu/align/bitwave.py:148"),
     "rowdp": ("pacbioassembly_tpu_torch/csrc/wavefront.cu", "pacbioassembly_tpu/align/wavefront.py:67"),
@@ -1640,6 +2077,15 @@ def main() -> int:
                       help="drive only the mesh phase (9): the engine on 2 shards of the card "
                            "against MESH_ROUNDS rounds of the K1 slice, the two-process "
                            "collectives and the remaining modules")
+    mode.add_argument("--genome", action="store_true",
+                      help="the whole 4.6 Mb E. coli 3%% genome with stall recovery, every round "
+                           "held to benchmarks/results/ecoli_wg_3pct_r5 (15-40 minutes)")
+    ap.add_argument("--out", default=None,
+                    help="with --genome: the directory of its checkpoints, metrics and logs "
+                         "(default: a temporary one)")
+    ap.add_argument("--resume", action="store_true",
+                    help="with --genome --out DIR: go on from DIR's finished contigs and the "
+                         "current contig's round checkpoint")
     ap.add_argument("--parallel-commit", action="store_true",
                     help="with --k1-slice: the engine's two-thread host commit "
                          "(cfg.parallel_commit)")
@@ -1649,6 +2095,10 @@ def main() -> int:
     args = ap.parse_args()
     if args.parallel_commit and not args.k1_slice:
         ap.error("--parallel-commit goes with --k1-slice")
+    if (args.out or args.resume) and not args.genome:
+        ap.error("--out and --resume go with --genome")
+    if args.resume and not args.out:
+        ap.error("--resume needs --out DIR")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -1670,7 +2120,8 @@ def main() -> int:
     ptxas = thread_build(_build)
     log(f"[device] K1 thread build: {ptxas if ptxas else 'not measured (cached build)'}")
 
-    one_phase = args.kernels or args.k1_slice or args.k3_slice or args.contigs_path or args.mesh_path
+    one_phase = (args.kernels or args.k1_slice or args.k3_slice or args.contigs_path
+                 or args.mesh_path or args.genome)
     if args.kernels:
         phase_kernels(torch, dev, Results(clock))
     elif args.k1_slice:
@@ -1681,6 +2132,10 @@ def main() -> int:
         phase_contigs(torch, dev, replay=False)
     elif args.mesh_path:
         phase_mesh_only(torch, dev, os.path.abspath(args.port))
+    elif args.genome:
+        with (contextlib.nullcontext(args.out) if args.out
+              else tempfile.TemporaryDirectory()) as out:
+            phase_genome(torch, dev, Results(clock), out, args.resume)
     else:
         for line in _build.ptxas_report:
             log(f"[device] ptxas {line}")
@@ -1693,6 +2148,7 @@ def main() -> int:
         phase_mesh(torch, dev, os.path.abspath(args.port), rowdp.reads, rowdp.patterns,
                    len(genome), ref_round, kept, counts, trial_cache=rowdp._trial_cache,
                    device_builder=rowdp._device_builder)
+        phase_stall(torch, dev, kept, counts)
         seen = set()
         for path, k in kept.items():
             seen |= phase_main_path_kernels(torch, res, k, path)

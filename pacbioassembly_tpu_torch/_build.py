@@ -12,8 +12,9 @@ stderr and keeps it in `ptxas_report`.
 
 Every C entry point returns `cudaGetLastError()` after its launch and
 `check()` raises on anything but 0: a refused launch never passes
-silently. Kernels launch on PyTorch's current stream, do not
-synchronise, and allocate nothing (the wrappers allocate with torch).
+silently. Kernels launch on the current stream of their tensors' card,
+with that card made current (`launching`), do not synchronise, and
+allocate nothing (the wrappers allocate with torch).
 
 Launch counters: every kernel wrapper adds one to its entry in `LAUNCHES`
 where it launches its kernel, and nowhere else; every plain version adds
@@ -23,6 +24,7 @@ path, and show which kernels carried it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -231,10 +233,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed: error {err} ({msg})")
 
 
-def stream_of(t) -> int:
+@contextlib.contextmanager
+def launching(t):
+    """Make `t`'s card the current CUDA device while a wrapper launches its
+    kernel there, and yield that card's current stream (a handle for the C
+    entry point). The runtime calls of a launch (`cudaFuncSetAttribute`,
+    the launch itself) act on the current device, so a tensor on another
+    card than the current one would otherwise be handed a stream of a
+    device its launch does not run on."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_tensor(t, dtype, shape, name: str, device=None) -> None:

@@ -122,12 +122,13 @@ def _launch(a, la, b, lb, *, la_max, w_max, ratio, maxn, maxm, kind, path=None,
     if path == "warp" and 32 * PW > SMEM_LIMIT:
         peq = torch.empty((max(B, 1), 4, PW), dtype=torch.int64, device=a.device)
     out = torch.empty((6, B), dtype=torch.int32, device=a.device)
-    err = lib.pb_bitwave(
-        a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
-        early_thr.data_ptr(), accept_min.data_ptr(), band_tab.data_ptr(), tab_len,
-        la_max, w_max, maxn, maxm, None if peq is None else peq.data_ptr(), PW,
-        1 if path == "thread" else 2, pairs, out.data_ptr(), _build.stream_of(a),
-    )
+    with _build.launching(a) as stream:
+        err = lib.pb_bitwave(
+            a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
+            early_thr.data_ptr(), accept_min.data_ptr(), band_tab.data_ptr(), tab_len,
+            la_max, w_max, maxn, maxm, None if peq is None else peq.data_ptr(), PW,
+            1 if path == "thread" else 2, pairs, out.data_ptr(), stream,
+        )
     _build.check(lib, err, "bitwave")
     _build.count(f"bitwave_{kind}")
     return BatchScores(out[0] != 0, out[1], out[2], out[3], out[4], out[5])

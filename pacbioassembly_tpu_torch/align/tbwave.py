@@ -192,11 +192,12 @@ def _launch_parents(a, la, b, lb, *, la_max, w_max, ratio, rows_max, lanes=0):
     # the kernel writes every word of the plane, zeros included
     out = torch.empty((B, NRB, S), dtype=torch.int32, device=a.device)
     lib = _build.library()
-    err = lib.pb_tbwave(
-        a.data_ptr(), LA, b.data_ptr(), LB, md.data_ptr(),
-        len_a.data_ptr(), len_b.data_ptr(), B, w_max, S, NRB, lanes, out.data_ptr(),
-        _build.stream_of(a),
-    )
+    with _build.launching(a) as stream:
+        err = lib.pb_tbwave(
+            a.data_ptr(), LA, b.data_ptr(), LB, md.data_ptr(),
+            len_a.data_ptr(), len_b.data_ptr(), B, w_max, S, NRB, lanes, out.data_ptr(),
+            stream,
+        )
     _build.check(lib, err, "tbwave")
     _build.count("tbwave")
     return out, md, len_b
@@ -316,11 +317,12 @@ def _launch_walk(parents, b, lb_dp, md, matlen_a, matlen_b, accept, *, w_max, e_
     vals = torch.empty((B, e_max), dtype=torch.uint8, device=dev)
     nedit = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.library()
-    err = lib.pb_walk(
-        parents.data_ptr(), NRB, S, b.data_ptr(), LB,
-        *(t.data_ptr() for t in vecs), acc.data_ptr(), B, w_max, e_max,
-        ops.data_ptr(), vals.data_ptr(), nedit.data_ptr(), _build.stream_of(parents),
-    )
+    with _build.launching(parents) as stream:
+        err = lib.pb_walk(
+            parents.data_ptr(), NRB, S, b.data_ptr(), LB,
+            *(t.data_ptr() for t in vecs), acc.data_ptr(), B, w_max, e_max,
+            ops.data_ptr(), vals.data_ptr(), nedit.data_ptr(), stream,
+        )
     _build.check(lib, err, "walk")
     _build.count("walk")
     return ops, vals, nedit

@@ -99,12 +99,12 @@ def _launch(a, la, b, lb, *, la_max, w_max, ratio, maxn, maxm, kind, path=None,
     )
     out = torch.empty((6, B), dtype=torch.int32, device=a.device)
     lib = _build.library()
-    err = lib.pb_wavefront(
-        a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
-        early_thr.data_ptr(), accept_min.data_ptr(), band_tab.data_ptr(), tab_len,
-        la_max, w_max, maxn, maxm, int(path == "warp"), lanes, out.data_ptr(),
-        _build.stream_of(a),
-    )
+    with _build.launching(a) as stream:
+        err = lib.pb_wavefront(
+            a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
+            early_thr.data_ptr(), accept_min.data_ptr(), band_tab.data_ptr(), tab_len,
+            la_max, w_max, maxn, maxm, int(path == "warp"), lanes, out.data_ptr(), stream,
+        )
     _build.check(lib, err, "wavefront")
     _build.count(f"rowdp_{kind}")
     return BatchScores(out[0] != 0, out[1], out[2], out[3], out[4], out[5])

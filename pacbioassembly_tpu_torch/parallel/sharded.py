@@ -29,7 +29,6 @@ single-device elect is consensus/elect.py::elect_packed).
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -55,21 +54,14 @@ def _tensor(x, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(dtype)
 
 
-def on_device(dev: torch.device):
-    """Make `dev` the current CUDA device while a block launches kernels
-    there: the kernels launch on the current device, and a shard may sit
-    on another card (a no-op for the CPU)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
 def _shards(mesh: Mesh, n_rows: int, *arrays):
-    """(device, per-shard slices of `arrays` on it) for this process's
-    shards: equal contiguous row blocks of the global batch."""
+    """Per shard of this process, the slices of `arrays` on its device:
+    equal contiguous row blocks of the global batch."""
     if n_rows % mesh.size:
         raise ValueError(f"batch of {n_rows} rows does not split into {mesh.size} equal shards")
     per = n_rows // mesh.size
     for s, dev in mesh.local_shards():
-        yield dev, [x[s * per : (s + 1) * per].to(dev) for x in arrays]
+        yield [x[s * per : (s + 1) * per].to(dev) for x in arrays]
 
 
 def device_elect(ops, vals, start, forward, enabled, L: int) -> VoteDelta:
@@ -98,10 +90,9 @@ def sharded_screen(
             _tensor(b, torch.uint8), _tensor(lb, torch.int32))
     # queue every shard's launch before any result is fetched
     parts = []
-    for dev, x in _shards(mesh, len(args[1]), *args):
-        with on_device(dev):
-            parts.append(score_batch(*x, screen_kernel=screen_kernel, kind="fullscreen",
-                                     la_max=la_max, w_max=w_max, ratio=ratio))
+    for x in _shards(mesh, len(args[1]), *args):
+        parts.append(score_batch(*x, screen_kernel=screen_kernel, kind="fullscreen",
+                                 la_max=la_max, w_max=w_max, ratio=ratio))
     first = mesh.first
     packed = torch.cat([torch.stack([f.to(torch.int32) for f in p]).to(first) for p in parts], 1)
     if mesh.world_size > 1:
@@ -122,7 +113,7 @@ def sharded_elect_packed(mesh: Mesh, ops, vals, start, forward, enabled, L: int)
     args = (_tensor(ops, torch.uint8), _tensor(vals, torch.uint8), _tensor(start, torch.int32),
             _tensor(forward, torch.bool), _tensor(enabled, torch.bool))
     first = mesh.first
-    deltas = [elect_packed(*x, L) for _, x in _shards(mesh, len(args[2]), *args)]
+    deltas = [elect_packed(*x, L) for x in _shards(mesh, len(args[2]), *args)]
     total = deltas[0].to(first)
     for d in deltas[1:]:
         total = total + d.to(first)

@@ -447,11 +447,12 @@ def test_bitwave_thread_path_takes_no_peq_scratch(cuda, monkeypatch):
     lib = _build.library()
 
     def launch(peq):
-        return lib.pb_bitwave(
-            a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
-            et.data_ptr(), am.data_ptr(), bt.data_ptr(), tab_len, kw["la_max"], kw["w_max"],
-            bitwave.Constants.ALIGNER_MAXN, bitwave.Constants.ALIGNER_MAXM, peq, PW, 1,
-            bitwave.THREAD_PAIRS, out.data_ptr(), _build.stream_of(a))
+        with _build.launching(a) as stream:
+            return lib.pb_bitwave(
+                a.data_ptr(), LA, b.data_ptr(), LB, la.data_ptr(), lb.data_ptr(), B,
+                et.data_ptr(), am.data_ptr(), bt.data_ptr(), tab_len, kw["la_max"], kw["w_max"],
+                bitwave.Constants.ALIGNER_MAXN, bitwave.Constants.ALIGNER_MAXM, peq, PW, 1,
+                bitwave.THREAD_PAIRS, out.data_ptr(), stream)
 
     assert launch(scratch.data_ptr()) == 1  # cudaErrorInvalidValue, nothing launched
     torch.cuda.synchronize()
@@ -787,3 +788,59 @@ def test_two_process_mesh_on_card_equals_serial(cuda, tmp_path):
         assert np.array_equal(np.concatenate([r["sel"], r["sup"], r["total"][:, None]], 1), serial)
         for f in scores._fields:
             assert np.array_equal(r[f], getattr(scores, f).cpu().numpy()), f
+
+
+def _engine_state(asm) -> tuple:
+    ref = asm.ref
+    return ([dataclasses.asdict(s) for s in asm.history], ref.text().tolist(),
+            [getattr(ref, f)[ref.beg : ref.end].tolist() for f in ("sel", "sup", "total")],
+            list(asm.surviving),
+            (asm.nround, asm.nfailure, asm.retreats, asm.fruitless_retreats,
+             asm.matches_since_retreat))
+
+
+def test_stall_retreat_on_card_equals_cpu(cuda, tmp_path):
+    """Fixture (a) of tests/torch_retreat.py (the stall store, its retreat
+    after round 19): the card's run equals the port's cpu run, round for
+    round, retreat and log included, through the kernels only."""
+    from torch_retreat import STALL, STALL_ROUNDS, retreat_lines, stall_patterns, stall_records
+    from torch_retreat import write_records
+
+    path = write_records(tmp_path, "stall.bin", stall_records())
+    cfg = AssemblyConfig(**STALL, max_round=STALL_ROUNDS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _build.reset_counts()
+        asm = BatchAssembler(cfg, ReadStore.from_file(path, cfg), stall_patterns(), device=dev)
+        log = io.StringIO()
+        asm.run(out=io.StringIO(), log=log)
+        runs[dev] = (_engine_state(asm), log.getvalue(), dict(_build.LAUNCHES))
+    (g, glog, counts), (c, clog, _) = runs["cuda"], runs["cpu"]
+    assert g == c and glog == clog
+    assert g[4][2] == 1 and len(retreat_lines(glog)) == 1
+    assert all(counts[k] > 0 for k in ("bitwave_fullscreen", "tbwave", "walk"))
+    assert all(counts[k] == 0 for k in _build.PLAIN)
+
+
+def test_engine_on_a_second_card_equals_the_first():
+    """3 rounds of the engine with every tensor on cuda:1 while cuda:0 is
+    current equal the same rounds on cuda:0: each kernel launches on its
+    tensor's card (_build.launching)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (torch.cuda.device_count() >= 2)")
+    path = _two_device_store()
+    cfg = AssemblyConfig(engine="batch", rng_seed=7, pattern_schedule="roundrobin",
+                         max_round=3, prefilter_min_batch=1)
+    runs = {}
+    with torch.cuda.device(0):
+        for dev in ("cuda:0", "cuda:1"):
+            _build.reset_counts()
+            asm = BatchAssembler(cfg, ReadStore.from_file(path, cfg), dna.load_patterns(SEEDS),
+                                 device=dev)
+            asm.run(out=io.StringIO())
+            runs[dev] = (_engine_state(asm), dict(_build.LAUNCHES))
+        assert torch.cuda.current_device() == 0
+    (first, _), (second, counts) = runs["cuda:0"], runs["cuda:1"]
+    assert second == first and second[4][0] == 3
+    assert all(counts[k] > 0 for k in ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"))
+    assert all(counts[k] == 0 for k in _build.PLAIN)
