@@ -8,7 +8,7 @@
     python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
     python3 chip_smoke.py --contigs-path [--port DIR]   # only the multi-contig path of 8
     python3 chip_smoke.py --mesh-path [--port DIR]      # only the mesh phase of 9
-    python3 chip_smoke.py --genome [--out DIR [--resume]]  # the whole 4.6 Mb genome (15-40 minutes)
+    python3 chip_smoke.py --genome [3pct|clr] [--out DIR [--resume]]  # a whole 4.6 Mb genome
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
 
@@ -95,22 +95,33 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      full screen, K2 and W must have launched, no plain version (phase 6
      replays this path's variants too).
 
-`--genome` runs the whole-genome path alone: the E. coli store of 3 (4.6 Mb
-at 30x, 3% uniform error, seed 11), assembled as benchmarks/ecoli_scale.py
-ran the JAX package's committed run benchmarks/results/ecoli_wg_3pct_r5
-(random pattern schedule, rng_seed 7 + contig, stall recovery
---edge-retreat 400 --retreat-bite 96 --retreat-min-len 20000
---retreat-fruitless 3, up to 64 contigs sharing the trial cache and the
-device builder, checkpoints every 50 rounds), every round held to the
-committed metrics on nround, pattern, ref_len, nmatches, ntrials,
-nreads_left and retreats (the first divergent round stops the run and
-prints both rows; the other fields print where they differ). Then contig 0
-byte for byte against the committed contig, the dedupe's dropped contigs,
-every read consumed, the residual error on the card and the coverage
-evaluation against the committed summary, and every kernel variant the
-run launched against its plain version. With `--out DIR` the checkpoints,
-metrics JSONL and engine log stay in DIR, and `--resume` goes on from its
-finished contigs and the current contig's round checkpoint.
+`--genome [3pct|clr]` runs the whole-genome path alone, held to a committed
+run of the JAX package (GENOME_RUNS): 3pct (the default) to
+benchmarks/results/ecoli_wg_3pct_r5, the E. coli store of 3 (4.6 Mb at 30x,
+3% uniform error, seed 11), and clr to ecoli_wg_15pct_clr_r5, the same
+genome at 15% CLR error (1:12:4 substitutions, insertions, deletions),
+the reference's headline experiment. Each is assembled as
+benchmarks/ecoli_scale.py ran it (random pattern schedule, rng_seed 7 +
+contig, stall recovery --edge-retreat 400 --retreat-bite 96
+--retreat-min-len 20000 --retreat-fruitless 3, up to 64 contigs sharing the
+trial cache and the device builder, checkpoints every 50 rounds), every
+round of every contig held to the committed metrics on nround, pattern,
+ref_len, nmatches, ntrials, nreads_left and retreats (the first divergent
+round stops the run and prints both rows; the other fields print where
+they differ), each contig ending on its committed last round. Then the
+end gates of ecoli_scale.py against the committed summary: the dedupe's
+dropped contigs, the reads consumed and surviving, the rounds of the kept
+contigs; contig 0 (3pct) or every kept contig (clr, the assembly FASTA)
+byte for byte; the residual error of the largest kept contig and of each of
+50 kb or more with their aggregate, on the card; the coverage evaluation
+holding them; the surviving reads classified on the card
+(tools/postprocess.py::classify_reads). Last, every kernel variant the run
+launched against its plain version, and a `genome` JSON line (per contig
+records, phase sums, gate results, launches, kernel rows). With `--out DIR`
+the checkpoints, metrics JSONL, engine log and the residual and
+classification results stay in DIR, and `--resume` goes on from its
+finished contigs, the current contig's round checkpoint and the end gates
+already computed (held to the committed values, not recomputed).
 
 Kernel times are CUDA events: a kernel's is the min over fresh inputs of
 its wrapper's launches queued behind a spin kernel, so that the host's
@@ -1710,22 +1721,56 @@ def phase_stall(torch, dev, kept, counts):
 
 # ---------------------------------------------------------------- --genome
 
-# the JAX package's whole-genome run that the genome mode is held to
-# (benchmarks/results/): its per-round metrics, contig 0 and summary
-GENOME_RUN = os.path.join(REPO, "benchmarks", "results", "ecoli_wg_3pct_r5")
-GENOME_CONTIGS = 64
-# benchmarks/ecoli_scale.py's config with that run's flags (--contigs 64
-# --edge-retreat 400 --retreat-bite 96 --retreat-min-len 20000
-# --retreat-fruitless 3, uncapped rounds)
+RESULTS = os.path.join(REPO, "benchmarks", "results")
+# benchmarks/ecoli_scale.py's config with the flags of both committed runs
+# (--contigs 64 --edge-retreat 400 --retreat-bite 96 --retreat-min-len 20000
+# --retreat-fruitless 3, uncapped rounds; max_seq_len = genome_len + 500 kb)
 GENOME_CONFIG = dict(engine="batch", rng_seed=7, pattern_schedule="random",
                      dedupe_diagonals=True, edge_retreat=400, edge_retreat_bite=96,
                      edge_retreat_min_len=20_000, edge_retreat_fruitless=3, max_trial=32,
                      max_seq_len=5_100_000, checkpoint_every=50)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenomeRun:
+    """One committed whole-genome run of the JAX package (benchmarks/results/
+    <name>_{metrics.jsonl,summary.json,...}) that --genome <key> is held to:
+    the read store it assembled (simulate_store's arguments), the engine
+    config and number of contigs, and the file its contigs are compared
+    with: contig 0 alone (`contig0`, a gzipped text line) or every contig
+    the dedupe keeps (`assembly`, a gzipped FASTA)."""
+
+    name: str
+    store: dict
+    label: str
+    contig0: str | None = None
+    assembly: str | None = None
+    config: dict = dataclasses.field(default_factory=lambda: dict(GENOME_CONFIG))
+    contigs: int = 64
+
+    @property
+    def prefix(self) -> str:
+        return os.path.join(RESULTS, self.name)
+
+
+E_COLI = dict(genome_len=4_600_000, coverage=30.0, mean_read_len=2500, seed=11,
+              max_read_len=19_000)
+GENOME_RUNS = {
+    "3pct": GenomeRun("ecoli_wg_3pct_r5", dict(E_COLI, error=0.03, profile="uniform"),
+                      "3% uniform error", contig0="ecoli_wg_3pct_r5_contig0.txt.gz"),
+    "clr": GenomeRun("ecoli_wg_15pct_clr_r5", dict(E_COLI, error=0.15, profile="clr"),
+                     "15% CLR error (1:12:4 substitutions, insertions, deletions)",
+                     assembly="ecoli_wg_15pct_clr_r5_assembly.fasta.gz"),
+}
 GENOME_GATED = ("nround", "pattern", "ref_len", "nmatches", "ntrials", "nreads_left", "retreats")
 GENOME_SHOWN = ("prefilter_kept", "host_aligns", "device_commits", "fullscreen_n",
                 "seedmap_size", "dropped_candidates")
-GENOME_PHASES = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s")
+GENOME_PHASES = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s", "lookup_s",
+                 "prefilter_s", "fullscreen_s", "tb_s", "host_commit_s", "elect_s")
 GENOME_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+RESIDUAL_MIN_LEN = 50_000  # ecoli_scale.py: contigs that get a residual of their own
+CLASSIFY_MIN_CONTIG = 10_000  # classify_reads' default: contigs it maps onto
+ACCOUNTING = ("total", "mapped", "seeded_only", "unseedable", "too_short")
 
 
 def committed_segments(path) -> list[dict]:
@@ -1741,8 +1786,30 @@ def committed_segments(path) -> list[dict]:
     return segs
 
 
+def assembly_fasta(contigs) -> str:
+    """benchmarks/results' assembly FASTA of the kept contigs (in build
+    order): longest first, `>contig_k len=L src=contig_j.txt` with j the
+    contig's place in the kept list, 80 bases a line."""
+    from pacbioassembly_tpu_torch.codec import dna
+
+    order = sorted(range(len(contigs)), key=lambda j: -len(contigs[j]))
+    out = []
+    for k, j in enumerate(order):
+        text = dna.codes_to_text(contigs[j])
+        out.append(f">contig_{k} len={len(text)} src=contig_{j}.txt\n")
+        out.extend(text[i:i + 80] + "\n" for i in range(0, len(text), 80))
+    return "".join(out)
+
+
+def committed_residuals(summary) -> tuple[list, float | None]:
+    """(per kept contig its residual or None, the aggregate) as the summary
+    holds them: benchmarks/ecoli_scale.py puts each in coverage_eval."""
+    return ([c.get("residual_error") for c in summary["coverage_eval"]["per_contig"]],
+            summary.get("assembly_residual_error"))
+
+
 @contextlib.contextmanager
-def gated_rounds(want, rows, diffs, every=100):
+def gated_rounds(want, rows, diffs, run_name, every=100):
     """While the block runs, each round an engine writes to its metrics
     (MetricsLogger.round) is appended to rows[-1], one list per contig, and
     held to the same round of want[len(rows) - 1] on GENOME_GATED: the first
@@ -1761,7 +1828,7 @@ def gated_rounds(want, rows, diffs, every=100):
         if ref is None or any(rec[k] != ref[k] for k in GENOME_GATED):
             raise AssertionError(
                 f"[genome] contig {ci} round {rec['nround']} diverges from "
-                f"{os.path.basename(GENOME_RUN)} on {GENOME_GATED}:\n  port: {json.dumps(rec)}\n"
+                f"{run_name} on {GENOME_GATED}:\n  port: {json.dumps(rec)}\n"
                 f"  committed: {json.dumps(ref)}")
         d = {k: [rec.get(k), ref.get(k)] for k in GENOME_SHOWN if rec.get(k) != ref.get(k)}
         if d:
@@ -1814,7 +1881,8 @@ def load_contigs(path):
     return results, z["surviving"].astype(np.int64).tolist()
 
 
-def genome_assemble(torch, dev, out, resume, reads, patterns, cfg, n_contigs, want, kept):
+def genome_assemble(torch, dev, out, resume, reads, patterns, cfg, n_contigs, want, kept,
+                    run_name):
     """The per-contig loop of benchmarks/ecoli_scale.py on `dev`: up to
     n_contigs engines at rng_seed + ci on the surviving reads, sharing the
     trial cache and the device builder, each with its round checkpoint
@@ -1835,7 +1903,7 @@ def genome_assemble(torch, dev, out, resume, reads, patterns, cfg, n_contigs, wa
     cache = builder = None
     engine_log = EngineLog(os.path.join(out, "engine.log"))
     try:
-        with gated_rounds(want, rows, diffs):
+        with gated_rounds(want, rows, diffs, run_name):
             for ci in range(len(results), n_contigs):
                 if surviving is not None and not surviving:
                     break
@@ -1860,7 +1928,8 @@ def genome_assemble(torch, dev, out, resume, reads, patterns, cfg, n_contigs, wa
                 rs = [r["round_s"] for r in rows[-1]]
                 records.append(dict(
                     contig=ci, len=len(results[-1].codes), reads=results[-1].nreads,
-                    rounds=asm.nround, rounds_here=len(rs), resumed=resumed, wall_s=wall,
+                    rounds=asm.nround, rounds_here=len(rs), resumed=resumed, pid=os.getpid(),
+                    wall_s=wall,
                     round_s_p50=float(np.percentile(rs, 50)),
                     round_s_p95=float(np.percentile(rs, 95)), retreats=asm.retreats,
                     card_mib=(torch.cuda.memory_allocated() - kept.nbytes) / 2**20,
@@ -1888,95 +1957,190 @@ def genome_assemble(torch, dev, out, resume, reads, patterns, cfg, n_contigs, wa
     return results, surviving, records, diffs
 
 
-def genome_gates(torch, dev, genome, reads, patterns, results, surviving, kept):
-    """The end gates against the committed run: contig 0 byte for byte,
-    the contigs built and dropped, every read consumed, the residual error
-    (on the card) and the coverage evaluation. Returns the residual and the
-    evaluation."""
+def saved_gate(out, name, compute):
+    """A gate's result kept in out/<name>.json: computed (and saved) by the
+    first call that reaches it, read back by a resumed one. Returns (result,
+    seconds it took)."""
+    path = os.path.join(out, f"{name}.json")
+    if os.path.exists(path):
+        with open(path) as fh:
+            got = json.load(fh)
+        log(f"[genome] {name}: read back from {path} (computed by an earlier call, "
+            f"{got['seconds']:.1f} s)")
+        return got["result"], got["seconds"]
+    t0 = time.perf_counter()
+    result = compute()
+    seconds = time.perf_counter() - t0
+    with open(path + ".tmp", "w") as fh:
+        json.dump({"result": result, "seconds": seconds}, fh)
+    os.replace(path + ".tmp", path)
+    return result, seconds
+
+
+def genome_gates(torch, dev, run, summary, cfg, genome, reads, patterns, results, surviving,
+                 kept, out):
+    """The end gates against the committed run, in benchmarks/ecoli_scale.py's
+    order: the contigs built and dropped by the dedupe, the reads consumed,
+    the contigs against the committed file byte for byte, the residual error
+    of the largest kept contig and of each kept contig of RESIDUAL_MIN_LEN
+    or more with their aggregate (on the card), the coverage evaluation
+    holding them, and the surviving reads classified (on the card). The
+    residuals and the classification are kept in `out` as each finishes
+    (saved_gate). Returns a dict of what the gates read."""
     import gzip
 
     from pacbioassembly_tpu_torch.codec import dna
     from pacbioassembly_tpu_torch.tools import coverage, locate
-    from pacbioassembly_tpu_torch.tools.postprocess import dedupe_contigs
+    from pacbioassembly_tpu_torch.tools.postprocess import classify_reads, dedupe_contigs
     from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
 
-    with open(GENOME_RUN + "_summary.json") as fh:
-        summary = json.load(fh)
-    with gzip.open(GENOME_RUN + "_contig0.txt.gz", "rt") as fh:
-        contig0 = dna.text_to_codes(fh.read().strip())
-    got0 = results[0].codes
-    if not np.array_equal(got0, contig0):
-        n = min(len(got0), len(contig0))
-        first = int(np.argmax(got0[:n] != contig0[:n])) if (got0[:n] != contig0[:n]).any() else n
-        raise AssertionError(f"[genome] contig 0 ({len(got0)} bp) != the committed contig "
-                             f"({len(contig0)} bp); first difference at {first}")
-    log(f"[genome] contig 0 == {os.path.basename(GENOME_RUN)}_contig0.txt.gz byte for byte "
-        f"({len(got0)} bp); the committed run took {summary['wall_s']} s on a TPU v5e (the JAX "
-        f"package)")
     kept_idx, dropped = dedupe_contigs([c.codes for c in results])
     for d in dropped:
         d["len"] = len(results[d["idx"]].codes)
     consumed = len(reads) - len(surviving)
-    log(f"[genome] {len(results)} contigs built, dedupe dropped {dropped}; {consumed} of "
-        f"{len(reads)} reads consumed")
     committed = summary.get("contigs_dropped_contained", [])  # left out when none
+    kept_codes = [results[i].codes for i in kept_idx]
+    kept_rounds = sum(results[i].nrounds for i in kept_idx)
+    log(f"[genome] {len(results)} contigs built, dedupe dropped {len(dropped)}: {dropped}; "
+        f"{consumed} of {len(reads)} reads consumed, {len(surviving)} survive; the "
+        f"{len(kept_idx)} kept contigs took {kept_rounds} of "
+        f"{sum(c.nrounds for c in results)} rounds")
     if (dropped != committed or consumed != summary["reads_consumed"]
             or len(reads) != summary["n_reads"]
-            or len(results) != len(dropped) + len(summary["contig_lens"])):
-        raise AssertionError(f"[genome] contigs or reads differ from the committed summary: "
-                             f"{committed}, "
-                             f"{summary['reads_consumed']} of {summary['n_reads']} consumed")
-    kept_codes = [results[i].codes for i in kept_idx]
-    best = max(kept_codes, key=len)
-    # benchmarks/ecoli_scale.py's residual: CCS-like reads at 2x, seed + 1
+            or len(surviving) != summary["n_reads"] - summary["reads_consumed"]
+            or len(results) != len(dropped) + len(summary["contig_lens"])
+            or sorted(map(len, kept_codes), reverse=True) != summary["contig_lens"]
+            or kept_rounds != summary["rounds"]):
+        raise AssertionError(
+            f"[genome] contigs or reads differ from the committed summary: dropped "
+            f"{committed}, contig_lens {summary['contig_lens']}, {summary['rounds']} rounds in "
+            f"the kept contigs, {summary['reads_consumed']} of {summary['n_reads']} consumed")
+    if run.contig0:
+        with gzip.open(os.path.join(RESULTS, run.contig0), "rt") as fh:
+            want0 = dna.text_to_codes(fh.read().strip())
+        got0 = results[0].codes
+        if not np.array_equal(got0, want0):
+            n = min(len(got0), len(want0))
+            first = int(np.argmax(got0[:n] != want0[:n])) if (got0[:n] != want0[:n]).any() else n
+            raise AssertionError(f"[genome] contig 0 ({len(got0)} bp) != the committed contig "
+                                 f"({len(want0)} bp); first difference at {first}")
+        log(f"[genome] contig 0 == {run.contig0} byte for byte ({len(got0)} bp)")
+    else:
+        with gzip.open(os.path.join(RESULTS, run.assembly), "rt") as fh:
+            want_fa = fh.read()
+        got_fa = assembly_fasta(kept_codes)
+        if got_fa != want_fa:
+            got_r, want_r = got_fa.splitlines(), want_fa.splitlines()
+            first = next((i for i, (x, y) in enumerate(zip(got_r, want_r)) if x != y),
+                         min(len(got_r), len(want_r)))
+            raise AssertionError(
+                f"[genome] the {len(kept_codes)} kept contigs != {run.assembly}: first "
+                f"different line {first}: port {got_r[first][:100] if first < len(got_r) else None!r}, "
+                f"committed {want_r[first][:100] if first < len(want_r) else None!r}")
+        log(f"[genome] the {len(kept_codes)} kept contigs == {run.assembly} byte for byte "
+            f"({len(got_fa)} bytes, {sum(map(len, kept_codes))} bp)")
+    log(f"[genome] the committed run took {summary['wall_s']} s on a TPU v5e (the JAX package)")
+
+    # benchmarks/ecoli_scale.py's residuals: CCS-like reads at 2x, seed + 1,
+    # onto the largest kept contig and onto each of RESIDUAL_MIN_LEN or more
     ccs = SimConfig(genome_len=len(genome), coverage=2.0, mean_read_len=2500,
-                    sub_rate=0.004, ins_rate=0.003, del_rate=0.003, seed=12)
+                    sub_rate=0.004, ins_rate=0.003, del_rate=0.003, seed=run.store["seed"] + 1)
     _, ccs_reads, _ = simulate(ccs, genome=genome)
-    t0 = time.perf_counter()
-    q, _ = run_path(torch, "genome:residual", kept, ("bitwave_locate",),
-                    lambda: locate.residual_error(best, patterns[0], ccs_reads, 0.15, device=dev))
-    want_q = {k: summary["quality"][k] for k in
-              ("mapped", "total", "residual_error", "total_cost", "total_len")}
-    got_q = {k: q[k] for k in want_q}
-    log(f"[genome] residual error on the card ({time.perf_counter() - t0:.1f} s): {got_q}")
+    best = max(range(len(kept_codes)), key=lambda i: len(kept_codes[i]))
+    own = [i for i, c in enumerate(kept_codes)
+           if len(kept_codes) == 1 or len(c) >= RESIDUAL_MIN_LEN]
+    scored = own + [best] * (best not in own)
+
+    def residuals():
+        qs = {}
+        for i in scored:
+            t0 = time.perf_counter()
+            qs[str(i)] = locate.residual_error(kept_codes[i], patterns[0], ccs_reads, 0.15,
+                                               device=dev)
+            log(f"[genome] residual of kept contig {i} ({len(kept_codes[i])} bp) on the card "
+                f"in {time.perf_counter() - t0:.1f} s: {qs[str(i)]}")
+        return qs
+
+    def on_card(name, fn):
+        return saved_gate(
+            out, name, lambda: run_path(torch, f"genome:{name}", kept, ("bitwave_locate",), fn)[0])
+
+    qs, residual_s = on_card("residuals", residuals)
+    qs = {int(i): q for i, q in qs.items()}
+    keys = ("mapped", "total", "residual_error", "total_cost", "total_len")
+    got_q = {k: qs[best][k] for k in keys}
+    want_q = {k: summary["quality"][k] for k in keys}
+    log(f"[genome] residual error of the largest contig ({len(kept_codes[best])} bp): {got_q}")
     if got_q != want_q:
         raise AssertionError(f"[genome] residual {got_q} != the committed {want_q}")
+    per_contig = [(qs[i]["residual_error"] if i in own else None) for i in range(len(kept_codes))]
+    agg_len = sum(qs[i]["total_len"] for i in own)
+    aggregate = round(sum(qs[i]["total_cost"] for i in own) / agg_len, 4) if agg_len else None
+    want_pc, want_agg = committed_residuals(summary)
+    log(f"[genome] residuals of {len(own)} kept contigs on the card ({residual_s:.1f} s): "
+        f"{per_contig}, aggregate {aggregate}")
+    if per_contig != want_pc or aggregate != want_agg:
+        raise AssertionError(f"[genome] residuals {per_contig}, aggregate {aggregate} != the "
+                             f"committed {want_pc}, {want_agg}")
+
     t0 = time.perf_counter()
     ev = coverage.evaluate_assembly(genome, kept_codes)
-    want_ev = json.loads(json.dumps(summary["coverage_eval"]))
-    for c in want_ev["per_contig"]:
-        c.pop("residual_error", None)
+    for c, r in zip(ev["per_contig"], per_contig):
+        c["residual_error"] = r
+    evaluate_s = time.perf_counter() - t0
     got_ev = json.loads(json.dumps(ev))
-    log(f"[genome] evaluate_assembly ({time.perf_counter() - t0:.1f} s): genome covered "
-        f"{ev['genome_covered']}, fraction {ev['genome_fraction']}, intervals "
-        f"{[c['intervals'] for c in ev['per_contig']]}, N50 {ev['n50']}, misassemblies "
-        f"{ev['misassemblies']}, max break {ev['max_break']}")
-    if got_ev != want_ev:
-        raise AssertionError(f"[genome] coverage {got_ev} != the committed {want_ev}")
-    return got_q, ev
+    log(f"[genome] evaluate_assembly ({evaluate_s:.1f} s): genome covered "
+        f"{ev['genome_covered']}, fraction {ev['genome_fraction']}, N50 {ev['n50']}, "
+        f"misassemblies {ev['misassemblies']}, max break {ev['max_break']}")
+    if got_ev != summary["coverage_eval"]:
+        raise AssertionError(f"[genome] coverage {got_ev} != the committed "
+                             f"{summary['coverage_eval']}")
+
+    accounting, classify_s = None, None
+    committed_acc = summary.get("unconsumed_accounting")  # left out when every read was consumed
+    want_acc = committed_acc and {k: committed_acc[k] for k in ACCOUNTING}
+    if surviving:
+        def classify():
+            got = classify_reads(kept_codes, [reads.codes(i) for i in surviving], patterns[0],
+                                 cfg.ratio, CLASSIFY_MIN_CONTIG, device=dev)
+            return {k: got[k] for k in ACCOUNTING}
+        accounting, classify_s = on_card("classify", classify)
+        log(f"[genome] classify_reads on the card: {accounting} in {classify_s:.1f} s (the "
+            f"committed run: {committed_acc and committed_acc['classify_s']} s on a TPU v5e "
+            f"and its host)")
+    if accounting != want_acc:
+        raise AssertionError(f"[genome] read accounting {accounting} != the committed {want_acc}")
+    return dict(residual=got_q, per_contig_residual=per_contig, assembly_residual=aggregate,
+                residual_s=residual_s, evaluate_s=evaluate_s, accounting=accounting,
+                classify_s=classify_s, genome_covered=ev["genome_covered"],
+                misassemblies=ev["misassemblies"], max_break=ev["max_break"])
 
 
-def phase_genome(torch, dev, res, out, resume):
-    """The --genome mode: the 4.6 Mb E. coli 3% store, assembled with
-    stall recovery into up to GENOME_CONTIGS contigs on the card, held
-    round for round to the committed run, then its end gates and every
-    kernel variant it launched against its plain version."""
+def phase_genome(torch, dev, res, out, resume, key="3pct"):
+    """The --genome mode: GENOME_RUNS[key]'s 4.6 Mb E. coli store,
+    assembled with stall recovery into up to run.contigs contigs on the
+    card, held round for round to the committed run, then its end gates
+    and every kernel variant it launched against its plain version."""
     from pacbioassembly_tpu_torch.align.screen import ladder_size
     from pacbioassembly_tpu_torch.codec import dna
     from pacbioassembly_tpu_torch.config import AssemblyConfig
 
+    run = GENOME_RUNS[key]
     os.makedirs(out, exist_ok=True)
     if not resume:
         for f in os.listdir(out):
-            if f.startswith(("ck_", "wg_", "metrics", "engine", "shown_")):
+            if f.startswith(("ck_", "wg_", "metrics", "engine", "shown_", "residuals",
+                             "classify")):
                 os.remove(os.path.join(out, f))
+    with open(run.prefix + "_summary.json") as fh:
+        summary = json.load(fh)
     t0 = time.perf_counter()
-    genome, reads = simulate_store(4_600_000, 30.0, 2500, 0.03, 11)
+    genome, reads = simulate_store(**run.store)
     patterns = dna.load_patterns(SEEDS)
-    log(f"[genome] simulated 4.6 Mb @ 30x, 3% uniform error, seed 11: {len(reads)} reads in "
-        f"{time.perf_counter() - t0:.1f} s")
-    want = committed_segments(GENOME_RUN + "_metrics.jsonl")
-    cfg = AssemblyConfig(**GENOME_CONFIG, metrics_path=os.path.join(out, "metrics.jsonl"))
+    log(f"[genome] {run.name}: simulated 4.6 Mb @ 30x, {run.label}, seed {run.store['seed']}: "
+        f"{len(reads)} reads in {time.perf_counter() - t0:.1f} s")
+    want = committed_segments(run.prefix + "_metrics.jsonl")
+    cfg = AssemblyConfig(**run.config, metrics_path=os.path.join(out, "metrics.jsonl"))
     kept = MainPathInputs()
     # a run from the first round launches every kernel of the path, a
     # resumed one some of them
@@ -1984,28 +2148,33 @@ def phase_genome(torch, dev, res, out, resume):
     t0 = time.perf_counter()
     (results, surviving, records, diffs), counts = run_path(
         torch, "genome", kept, GENOME_KERNELS,
-        lambda: genome_assemble(torch, dev, out, resume, reads, patterns, cfg, GENOME_CONTIGS,
-                                want, kept),
+        lambda: genome_assemble(torch, dev, out, resume, reads, patterns, cfg, run.contigs,
+                                want, kept, run.name),
         every=fresh)
     wall = time.perf_counter() - t0
-    mems = [r["card_mib"] for r in records]
+    here = [r["card_mib"] for r in records if r["pid"] == os.getpid()]
     window_mib = 2 * ladder_size(max(r["len"] for r in records), 8192) / 2**20
     log(f"[genome] assembly wall {wall:.1f} s in this run, "
         f"{sum(r['wall_s'] for r in records):.1f} s over the contigs of every run; "
-        f"{len(diffs)} rounds differ from the committed run only outside the gated fields"
+        f"{sum(r['rounds_here'] for r in records)} rounds in {len(records)} contigs held to "
+        f"{run.name} on {GENOME_GATED}; {len(diffs)} rounds differ only outside them"
         + (f", first {diffs[:3]}" if diffs else ""))
-    if len(results) < len(want) or surviving:
-        raise AssertionError(f"[genome] {len(results)} contigs, {len(surviving)} reads left")
-    if max(mems) > mems[0] + window_mib:
-        raise AssertionError(f"[genome] the card's allocated memory grew from contig to contig: {mems}")
-    quality, ev = genome_gates(torch, dev, genome, reads, patterns, results, surviving, kept)
-    phase_main_path_kernels(torch, res, kept, "genome")
+    if len(results) != len(want) or [r.nrounds for r in results] != [max(w) for w in want]:
+        raise AssertionError(f"[genome] {len(results)} contigs, the committed run {len(want)}")
+    if here and max(here) > here[0] + window_mib:
+        raise AssertionError(f"[genome] the card's allocated memory grew from contig to contig: "
+                             f"{here}")
+    gates = genome_gates(torch, dev, run, summary, cfg, genome, reads, patterns, results,
+                         surviving, kept, out)
+    phase_main_path_kernels(torch, res, kept, f"genome-{key}")
     print(json.dumps({"genome": {
-        "contigs": records, "assembly_wall_s": sum(r["wall_s"] for r in records),
-        "shown_differences": len(diffs), "residual": quality,
-        "genome_covered": ev["genome_covered"], "misassemblies": ev["misassemblies"],
+        "run": run.name, "contigs": records,
+        "assembly_wall_s": sum(r["wall_s"] for r in records),
+        "rounds": sum(r["rounds"] for r in records),
+        "phase_sums_s": {k: sum(r[k] for r in records if k in r) for k in GENOME_PHASES},
+        "shown_differences": len(diffs), **gates,
         "launches": {k: counts[k] for k in GENOME_KERNELS},
-        "kernels": [r for r in res.rows if r.get("path") == "genome"]}}), flush=True)
+        "kernels": [r for r in res.rows if r.get("path") == f"genome-{key}"]}}), flush=True)
 
 
 ROUTES = {
@@ -2077,9 +2246,11 @@ def main() -> int:
                       help="drive only the mesh phase (9): the engine on 2 shards of the card "
                            "against MESH_ROUNDS rounds of the K1 slice, the two-process "
                            "collectives and the remaining modules")
-    mode.add_argument("--genome", action="store_true",
-                      help="the whole 4.6 Mb E. coli 3%% genome with stall recovery, every round "
-                           "held to benchmarks/results/ecoli_wg_3pct_r5 (15-40 minutes)")
+    mode.add_argument("--genome", nargs="?", const="3pct", choices=sorted(GENOME_RUNS),
+                      help="the whole 4.6 Mb E. coli genome with stall recovery, every round "
+                           "held to a committed run of the JAX package: 3pct (the default; "
+                           "benchmarks/results/ecoli_wg_3pct_r5, about 10 minutes) or clr "
+                           "(ecoli_wg_15pct_clr_r5, 64 contigs)")
     ap.add_argument("--out", default=None,
                     help="with --genome: the directory of its checkpoints, metrics and logs "
                          "(default: a temporary one)")
@@ -2102,7 +2273,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(args.port))
+    port = os.path.abspath(args.port)
+    if not os.path.isdir(os.path.join(port, "pacbioassembly_tpu_torch")):
+        print(f"chip_smoke: no pacbioassembly_tpu_torch in {port}: run the script from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, port)
     from pacbioassembly_tpu_torch import _build
 
     t_all = time.perf_counter()
@@ -2135,7 +2311,7 @@ def main() -> int:
     elif args.genome:
         with (contextlib.nullcontext(args.out) if args.out
               else tempfile.TemporaryDirectory()) as out:
-            phase_genome(torch, dev, Results(clock), out, args.resume)
+            phase_genome(torch, dev, Results(clock), out, args.resume, args.genome)
     else:
         for line in _build.ptxas_report:
             log(f"[device] ptxas {line}")

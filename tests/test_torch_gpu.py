@@ -822,6 +822,32 @@ def test_stall_retreat_on_card_equals_cpu(cuda, tmp_path):
     assert all(counts[k] == 0 for k in _build.PLAIN)
 
 
+def test_clr_contigs_on_card_equal_cpu(cuda, tmp_path):
+    """tests/torch_clr.py's 15% CLR store with the whole-genome runs' stall
+    recovery (RETREAT), 2 contigs run to their ends, the prefilter forced
+    on: equal ContigResults, surviving reads and logs (retreat lines
+    included) on the card and on the CPU, the card's run through the
+    kernels only."""
+    from torch_clr import ENGINE, RETREAT, write_clr_store
+
+    store = write_clr_store(tmp_path)
+    cfg = AssemblyConfig(**dict(ENGINE, max_round=None, prefilter_min_batch=1, **RETREAT))
+    pats = dna.load_patterns(SEEDS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _build.reset_counts()
+        log = io.StringIO()
+        contigs, surviving = assemble_contigs(cfg, ReadStore.from_file(store, cfg), pats, 2,
+                                              log=log, dedupe=False, device=dev)
+        runs[dev] = ([(c.codes.tolist(), c.nreads, c.nrounds) for c in contigs], surviving,
+                     log.getvalue(), dict(_build.LAUNCHES))
+    g, c = runs["cuda"], runs["cpu"]
+    assert g[:3] == c[:3]
+    assert len(g[0]) == 2 and g[2].count("--- edge retreat") > 2
+    assert all(g[3][k] > 0 for k in ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"))
+    assert all(g[3][k] == 0 for k in _build.PLAIN)
+
+
 def test_engine_on_a_second_card_equals_the_first():
     """3 rounds of the engine with every tensor on cuda:1 while cuda:0 is
     current equal the same rounds on cuda:0: each kernel launches on its
