@@ -7,7 +7,7 @@
     python3 chip_smoke.py --k1-slice --parallel-commit   # the same with the two-thread host commit
     python3 chip_smoke.py --k3-slice [--port DIR]   # only the K3 slice of 4 and locate through K3
     python3 chip_smoke.py --contigs-path [--port DIR]   # only the multi-contig path of 8
-    python3 chip_smoke.py --mesh-path [--port DIR]      # only the mesh phase of 9
+    python3 chip_smoke.py --mesh-path [--port DIR]      # only the mesh phase of 9 (mesh paths too)
     python3 chip_smoke.py --genome [3pct|clr] [--out DIR [--resume]]  # a whole 4.6 Mb genome
 
 Builds the CUDA kernels from csrc/ with nvcc at first use, then:
@@ -47,10 +47,10 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      it did not) mapped onto its contig, pattern 1 of seeds.txt, R=0.15,
      through K3 and through K1: equal TSVs, the first 100 reads equal the
      sequential host loop, residual error and wall time of each;
-  6. every kernel variant the paths of 3-5 and 8-10 launched, held against
+  6. every kernel variant the paths of 3-5 and 8-11 launched, held against
      its plain version on the inputs of its first launches, at the paths'
      own shapes, and K3's variants at each of its launch shapes equal to the
-     wrapper's choice on those inputs (8-10 run before 6 and 7);
+     wrapper's choice on those inputs (8-11 run before 6 and 7);
   7. the same port on cuda and on cpu, 8 rounds of a 60 kb genome: equal
      contig bytes, votes and surviving reads;
   8. multi-contig assembly through the CLI (`assemble --engine batch
@@ -84,7 +84,18 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      run, align/bitscan.py on the card == K1, and the device seed index and
      device evolve on the K1 slice's round-60 contig and reference (before
      its evolve) == the host build_seedmap / lookup_batch and evolve, each
-     timed beside the host function;
+     timed beside the host function; (d) the mesh paths: the three paths
+     of the multi-device dry run (tests/torch_mesh_paths.py: two 6 kb
+     segments at 10x, 2% error, edge retreat 2 with 48-cell bites) on 2
+     shards of the card, on 1 shard of the card and on the cpu, all equal:
+     the retreat run (10 rounds, 2 retreats), assemble_contigs(..., 3,
+     dedupe=True, mesh=) (2 contigs kept), and a checkpoint at round 2
+     resumed to round 6 (rng_seed 5) == 6 uninterrupted rounds, the 2-shard
+     checkpoint resumed on one shard too; the retreat run once more with
+     the prefilter forced on, 2 shards == 1 shard; per path its wall time,
+     rounds and s/round on 2 and on 1 shard and its launches by kernel
+     variant; K1 (prefilter and full screen), K2 and W must have launched,
+     no plain version (path `mesh-paths` in 6);
  10. stall recovery: tests/torch_retreat.py's fixtures (a), the stall store
      of tests/test_batch.py::test_edge_retreat_recovers_from_stall (its
      weak fringe trimmed after round 19; 20 rounds), and (b), the fruitless
@@ -93,7 +104,15 @@ Builds the CUDA kernels from csrc/ with nvcc at first use, then:
      equal RoundStats, contig bytes, votes, surviving reads, retreat
      counters and logs; a trimmed fringe and a fixed bite on the card; K1's
      full screen, K2 and W must have launched, no plain version (phase 6
-     replays this path's variants too).
+     replays this path's variants too);
+ 11. the engine's branches (tests/torch_branches.py: synth2 with the
+     reference's quirks): `-l` (locked: every alignment on the host, no K2
+     or W; the output equal to golden_consensus_locked.txt under its
+     newline-as-'T' rule), `-d` (ratio 0.25, 16 trials: the dump) and
+     device_traceback=False (no K2 or W), on the card and on the cpu: equal
+     printed consensus, dump bytes, RoundStats, contig, votes and
+     survivors; K1's full screen, K2 and W must have launched, no plain
+     version (path `branches` in 6).
 
 `--genome [3pct|clr]` runs the whole-genome path alone, held to a committed
 run of the JAX package (GENOME_RUNS): 3pct (the default) to
@@ -1580,8 +1599,8 @@ def phase_mesh(torch, dev, port, reads, patterns, genome_len, ref_round, kept, c
                **shared):
     """The mesh phase (9): the engine on a 2-shard mesh of the card held to
     the K1 slice (`ref_round`: its recorded state, round times, contig and
-    pre-evolve reference), the two-process collectives, and the remaining
-    modules against their plain versions."""
+    pre-evolve reference), the two-process collectives, the remaining
+    modules against their plain versions, and the dry run's mesh paths."""
     t0 = time.perf_counter()
     mesh_engine(torch, dev, reads, patterns, genome_len, ref_round["state"],
                 ref_round["round_s"], kept, counts, **shared)
@@ -1590,15 +1609,17 @@ def phase_mesh(torch, dev, port, reads, patterns, genome_len, ref_round, kept, c
     t2 = time.perf_counter()
     mesh_modules(torch, dev, ref_round["contig"], patterns[0], ref_round["pre_evolve"],
                  ref_round["at"])
+    t3 = time.perf_counter()
+    mesh_paths(torch, dev, kept, counts)
     log(f"[mesh] phase: engine {t1 - t0:.1f} s, two processes {t2 - t1:.1f} s, modules "
-        f"{time.perf_counter() - t2:.1f} s")
+        f"{t3 - t2:.1f} s, mesh paths {time.perf_counter() - t3:.1f} s")
 
 
 def phase_mesh_only(torch, dev, port, genome_len=4_600_000):
     """Only the mesh phase (--mesh-path): the K1 slice for MESH_ROUNDS
     rounds on one device as the reference (its round-MESH_ROUNDS contig
-    and reference for the modules), then the phase; the mesh path's kernel
-    variants against their plain versions."""
+    and reference for the modules), then the phase; the kernel variants of
+    the mesh round and of the mesh paths against their plain versions."""
     _, reads, patterns, _, k1 = slice_engine(torch, dev, genome_len, MESH_ROUNDS)
     with recorded(k1, MESH_ROUNDS, copy_round=MESH_ROUNDS) as rec:
         k1.run(out=None)
@@ -1607,8 +1628,216 @@ def phase_mesh_only(torch, dev, port, genome_len=4_600_000):
     phase_mesh(torch, dev, port, reads, patterns, genome_len, ref_round, kept, counts,
                trial_cache=k1._trial_cache, device_builder=k1._device_builder)
     del k1
-    phase_main_path_kernels(torch, Results(float(nvidia_smi("clocks.max.sm").split()[0])),
-                            kept["mesh"], "mesh")
+    res = Results(float(nvidia_smi("clocks.max.sm").split()[0]))
+    for path, k in kept.items():
+        phase_main_path_kernels(torch, res, k, path)
+
+
+# ------------------------------- the dry run's mesh paths (phase 9, step 4)
+
+# tests/torch_mesh_paths.py: the store and settings of the multi-device dry
+# run's three mesh paths (__graft_entry__.py, part 3): (a) the retreat run,
+# (b) assemble_contigs(..., 3, dedupe=True), (c) a checkpoint at round 2
+# resumed to round 6 (rng_seed 5)
+MESH_PATHS = dict(max_round=30, rng_seed=1, pattern_schedule="roundrobin",
+                  edge_retreat=2, edge_retreat_bite=48)
+MESH_PATHS_CONTIGS = 3
+MESH_PATHS_CHECKPOINT = dict(rng_seed=5, saved=2, rounds=6)
+MESH_PATHS_KERNELS = ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk")
+
+
+def mesh_paths_store():
+    """(ReadStore, patterns): two unrelated 6,000-base segments (rng 7), each
+    at 10x, reads 550-900 (mean 700), 2% each of sub/ins/del, seed 11; one
+    pattern of 16 ones."""
+    from pacbioassembly_tpu_torch.assemble import ReadStore
+    from pacbioassembly_tpu_torch.codec import binary_io, dna
+    from pacbioassembly_tpu_torch.tools.simulate import SimConfig, simulate
+
+    rng = np.random.default_rng(7)
+    segs = [rng.integers(0, 4, 6000).astype(np.uint8) for _ in range(2)]
+    reads = []
+    for g in segs:
+        _, rl, _ = simulate(SimConfig(genome_len=len(g), coverage=10.0, mean_read_len=700,
+                                      min_read_len=550, max_read_len=900, sub_rate=0.02,
+                                      ins_rate=0.02, del_rate=0.02, seed=11), genome=g)
+        reads += rl
+    buf = io.BytesIO()
+    binary_io.write_records(buf, reads)
+    return (ReadStore(np.frombuffer(buf.getvalue(), dtype=np.uint8)),
+            [dna.parse_pattern("1111111111111111")])
+
+
+@contextlib.contextmanager
+def kept_engines():
+    """While the block runs: every BatchAssembler built, in order."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+
+    engines = []
+    real = BatchAssembler.__init__
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        engines.append(self)
+
+    BatchAssembler.__init__ = init
+    try:
+        yield engines
+    finally:
+        BatchAssembler.__init__ = real
+
+
+def mesh_paths_run(dev, mesh, reads, patterns, ck, paths="abc", **over) -> tuple[dict, dict]:
+    """The paths in `paths` on `dev` over `mesh` (None: one shard), `over`
+    replacing settings: ({path: result}, {path: (wall s, rounds)}). (a):
+    run_fixture's result; (b): the ContigResults, survivors, log and each
+    engine's state and counters; (c): run_fixture's results of the
+    uninterrupted run ('full'), the run that saves checkpoint file `ck`
+    ('saved') and the one resumed from it ('resumed')."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler, assemble_contigs
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+
+    cfg = AssemblyConfig(**dict(MESH_PATHS, **over))
+    got, secs = {}, {}
+    if "a" in paths:
+        t0 = time.perf_counter()
+        got["a"] = run_fixture(BatchAssembler(cfg, reads, patterns, device=dev, mesh=mesh))
+        secs["a"] = (time.perf_counter() - t0, got["a"]["counters"][0])
+    if "b" in paths:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with kept_engines() as engines:
+            contigs, surv = assemble_contigs(cfg, reads, patterns, MESH_PATHS_CONTIGS, log=out,
+                                             dedupe=True, device=dev, mesh=mesh)
+        got["b"] = dict(contigs=[(c.codes.tolist(), c.nreads, c.nrounds) for c in contigs],
+                        surviving=surv, log=out.getvalue(),
+                        states=[state_of(e) for e in engines],
+                        counters=[(e.nround, e.nfailure, e.retreats, e.fruitless_retreats,
+                                   e.matches_since_retreat) for e in engines])
+        secs["b"] = (time.perf_counter() - t0, sum(e.nround for e in engines))
+    if "c" in paths:
+        c = MESH_PATHS_CHECKPOINT
+        base = dataclasses.replace(cfg, rng_seed=c["rng_seed"])
+        t0 = time.perf_counter()
+        runs = {}
+        for name, kw in (("full", dict(max_round=c["rounds"])),
+                         ("saved", dict(max_round=c["saved"], checkpoint_path=ck,
+                                        checkpoint_every=c["saved"])),
+                         ("resumed", dict(max_round=c["rounds"], resume_path=ck))):
+            asm = BatchAssembler(dataclasses.replace(base, **kw), reads, patterns, device=dev,
+                                 mesh=mesh)
+            runs[name] = run_fixture(asm)
+        got["c"] = runs
+        secs["c"] = (time.perf_counter() - t0, c["rounds"] + c["rounds"])
+    return got, secs
+
+
+def same_run(a: dict, b: dict) -> bool:
+    """run_fixture results: state, counters and log."""
+    return same_state(a, b) and a["counters"] == b["counters"] and a["log"] == b["log"]
+
+
+# the step's runs on the card: (key, path, settings over MESH_PATHS); a_pf is
+# (a) with the prefilter forced on, as the store's rounds stay under its
+# candidate threshold
+MESH_PATHS_RUNS = (("a", "a", {}), ("b", "b", {}), ("c", "c", {}),
+                   ("a_pf", "a", dict(prefilter_min_batch=1)))
+
+
+def check_mesh_paths(tag, got, want):
+    """`got`'s runs against `want`'s (the cpu's (b) and (c); (a) is the
+    retreat run of (b)'s first engine)."""
+    b, wb = got["b"], want["b"]
+    if (b["contigs"], b["surviving"], b["log"], b["counters"]) != (
+            wb["contigs"], wb["surviving"], wb["log"], wb["counters"]) or not all(
+            same_state(x, y) for x, y in zip(b["states"], wb["states"])):
+        raise AssertionError(f"[mesh paths] {tag}: (b) assemble_contigs differs")
+    want_a = dict(wb["states"][0], counters=wb["counters"][0],
+                  log=wb["log"][: wb["log"].index("=== contig 0")])
+    if not same_run(got["a"], want_a):
+        raise AssertionError(f"[mesh paths] {tag}: (a) the retreat run differs")
+    if not same_run(got["c"]["full"], want["c"]["full"]):
+        raise AssertionError(f"[mesh paths] {tag}: (c) the uninterrupted run differs")
+    check_resumed(tag, got["c"]["resumed"], want["c"]["full"])
+
+
+def check_resumed(tag, resumed, full):
+    """A run resumed from (c)'s checkpoint against the uninterrupted one."""
+    saved = MESH_PATHS_CHECKPOINT["saved"]
+    if not (same_state(resumed, dict(full, history=full["history"][saved:]))
+            and resumed["counters"] == full["counters"]):
+        raise AssertionError(f"[mesh paths] {tag}: (c) the resumed run differs")
+
+
+def mesh_paths(torch, dev, kept, counts):
+    """Step 4 of the mesh phase: the dry run's three paths on 2 shards of
+    the card, held to the port's cpu run (one shard) and to their 1-shard
+    card runs; the checkpoint saved on 2 shards resumed on one; (a) once
+    more with the prefilter forced on, 2 shards == 1 shard on the card. Per
+    path the wall time, rounds and s/round on 2 and on 1 shard, and the
+    launches by kernel variant."""
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+    from pacbioassembly_tpu_torch.parallel import make_mesh
+
+    t_step = time.perf_counter()
+    reads, patterns = mesh_paths_store()
+    kept["mesh-paths"] = MainPathInputs()
+    calls = kept["mesh-paths"].calls
+    by_run = {}
+
+    def runs(mesh, ck, variants=False):
+        got, secs = {}, {}
+        for key, p, over in MESH_PATHS_RUNS:
+            before = {k: sum(v.values()) for k, v in calls.items()}
+            g, s = mesh_paths_run(dev, mesh, reads, patterns, ck, paths=p, **over)
+            got[key], secs[key] = g[p], s[p]
+            if variants:
+                by_run[key] = {k: sum(v.values()) - before.get(k, 0) for k, v in calls.items()}
+        return got, secs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = {k: os.path.join(tmp, f"{k}.npz") for k in ("m2", "one", "cpu")}
+        (m2, secs2), counts["mesh-paths"] = run_path(
+            torch, "mesh-paths", kept["mesh-paths"], MESH_PATHS_KERNELS,
+            lambda: runs(make_mesh(devices=[dev, dev]), ck["m2"], variants=True))
+        t_card = time.perf_counter()
+        one, secs1 = runs(None, ck["one"])
+        c = MESH_PATHS_CHECKPOINT
+        cross = run_fixture(BatchAssembler(
+            AssemblyConfig(**dict(MESH_PATHS, rng_seed=c["rng_seed"], max_round=c["rounds"],
+                                  resume_path=ck["m2"])), reads, patterns, device=dev))
+        t_cpu = time.perf_counter()
+        cpu, _ = mesh_paths_run("cpu", None, reads, patterns, ck["cpu"], paths="bc")
+        t_end = time.perf_counter()
+    check_mesh_paths("2 shards of the card against the cpu", m2, cpu)
+    check_mesh_paths("1 shard of the card against the cpu", one, cpu)
+    check_resumed("the 2-shard checkpoint resumed on 1 shard of the card", cross,
+                  cpu["c"]["full"])
+    if not same_run(m2["a_pf"], one["a_pf"]):
+        raise AssertionError("[mesh paths] (a) with the prefilter forced on: 2 shards != 1 shard")
+    a, b = m2["a"], m2["b"]
+    if not (a["counters"][2] == 2 and b["surviving"] == [] and len(b["contigs"]) == 2):
+        raise AssertionError(f"[mesh paths] not the dry run's paths: (a) counters "
+                             f"{a['counters']}, (b) {len(b['contigs'])} contigs, "
+                             f"{len(b['surviving'])} reads left")
+    names = {"a": "(a) retreat run", "b": "(b) assemble_contigs(3, dedupe)",
+             "c": "(c) checkpoint at 2, resumed to 6 (+ 6 uninterrupted)",
+             "a_pf": "(a) with prefilter_min_batch=1"}
+    for key, _, _ in MESH_PATHS_RUNS:
+        (w2, r2), (w1, r1) = secs2[key], secs1[key]
+        variants = ", ".join(f"{k[0]} {k[1]}: {n}" for k, n in sorted(
+            by_run[key].items(), key=lambda kv: str(kv[0])) if n)
+        log(f"[mesh paths] {names[key]}: {r2} rounds, 2 shards {w2:.3f} s "
+            f"({w2 / r2:.4f} s/round), 1 shard {w1:.3f} s ({w1 / r1:.4f} s/round); "
+            f"launches by variant: {variants or 'none'}")
+    log(f"[mesh paths] (a) {a['counters'][0]} rounds, {a['counters'][2]} retreats, "
+        f"{len(a['contig'])} bp, {len(a['surviving'])} reads left; (b) contigs "
+        f"{[len(x[0]) for x in b['contigs']]}, {len(b['surviving'])} reads left; (c) resumed "
+        f"on 2 shards and on 1 == uninterrupted; every run on 2 shards == 1 shard, and (a), "
+        f"(b), (c) == cpu")
+    log(f"[mesh paths] step {t_end - t_step:.1f} s: card 2 shards {t_card - t_step:.1f} s, "
+        f"card 1 shard {t_cpu - t_card:.1f} s, cpu {t_end - t_cpu:.1f} s")
 
 
 # ----------------------------------------------- stall recovery (phase 10)
@@ -1717,6 +1946,84 @@ def phase_stall(torch, dev, kept, counts):
             f"and cpu")
     log(f"[stall] cells trimmed on the card: fringe {trims['edges']}, fixed bites "
         f"{trims['fixed']}; phase {time.perf_counter() - t0:.1f} s (card {t1 - t0:.1f} s)")
+
+
+# ------------------------------------------- the engine's branches (phase 11)
+
+# tests/torch_branches.py: synth2 with the quirks of
+# tests/test_pipeline_variants.py, one pattern, round-robin
+SYNTH2 = os.path.join(REPO, "tests", "data")
+BRANCH_CASES = {
+    "locked": dict(locked=True, max_round=5),
+    "dump": dict(ratio=0.25, max_trial=16, dump_path="-", max_round=10),
+    "host_traceback": dict(device_traceback=False, max_round=10),
+}
+BRANCH_KERNELS = ("bitwave_fullscreen", "tbwave", "walk")
+
+
+def branch_run(dev, case) -> dict:
+    """One case of BRANCH_CASES on `dev`: state_of, the printed consensus
+    and the dump."""
+    from pacbioassembly_tpu_torch.assemble import ReadStore
+    from pacbioassembly_tpu_torch.assemble.batch import BatchAssembler
+    from pacbioassembly_tpu_torch.codec import dna
+    from pacbioassembly_tpu_torch.config import AssemblyConfig
+
+    cfg = AssemblyConfig(engine="batch", initial_ref_path=os.path.join(SYNTH2, "synth2_init.txt"),
+                         pattern_schedule="roundrobin", quirk_init_newline=True,
+                         quirk_seed_at=True, **BRANCH_CASES[case])
+    reads = ReadStore.from_file(os.path.join(SYNTH2, "synth2_reads.bin"), cfg)
+    dump = io.StringIO() if cfg.dump_path else None
+    asm = BatchAssembler(cfg, reads, dna.load_patterns(os.path.join(SYNTH2, "oneseed_full.txt")),
+                         dump=dump, device=dev)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    asm.run(out=out)
+    return dict(state_of(asm), out=out.getvalue(), dump=dump.getvalue() if dump else "",
+                wall=time.perf_counter() - t0, nround=asm.nround)
+
+
+def phase_branches(torch, dev, kept, counts):
+    """Phase 11: the engine's branches off the main path on the card and on
+    the port's cpu, equal (printed consensus, dump bytes, RoundStats,
+    contig, votes, survivors): `-l` (no K2, no W: every alignment on the
+    host; the output also equal to golden_consensus_locked.txt under the
+    newline-as-'T' rule), `-d` (K2 and W launch) and
+    `device_traceback=False` (no K2, no W)."""
+    from pacbioassembly_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    kept["branches"] = MainPathInputs()
+    per_case = {}
+
+    def on_card():
+        got = {}
+        for case in BRANCH_CASES:
+            before = dict(_build.LAUNCHES)
+            got[case] = branch_run(dev, case)
+            per_case[case] = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v > before[k]}
+        return got
+
+    card, counts["branches"] = run_path(torch, "branches", kept["branches"], BRANCH_KERNELS,
+                                        on_card)
+    t1 = time.perf_counter()
+    golden = open(os.path.join(SYNTH2, "golden_consensus_locked.txt")).read()
+    for case in BRANCH_CASES:
+        got, want = card[case], branch_run("cpu", case)
+        if not (same_state(got, want) and got["out"] == want["out"]
+                and got["dump"] == want["dump"]):
+            raise AssertionError(f"[branches] {case}: cuda != cpu")
+        k2w = {k: per_case[case].get(k, 0) for k in ("tbwave", "walk")}
+        if (case == "dump") != all(k2w.values()) or (case != "dump" and any(k2w.values())):
+            raise AssertionError(f"[branches] {case}: K2 / W launches {k2w}")
+        if case == "locked" and not (len(golden) == len(got["out"]) and all(
+                g == m or (g == "\n" and m == "T") for g, m in zip(golden, got["out"]))):
+            raise AssertionError("[branches] locked: not golden_consensus_locked.txt")
+        log(f"[branches] {case}: {got['nround']} rounds, contig {len(got['contig'])} bp, "
+            f"{len(got['surviving'])} reads left, dump {len(got['dump'])} bytes; launches "
+            f"{per_case[case]}; printed consensus, dump, RoundStats, contig, votes and survivors "
+            f"equal on cuda ({got['wall']:.3f} s) and cpu ({want['wall']:.3f} s)")
+    log(f"[branches] phase {time.perf_counter() - t0:.1f} s (card {t1 - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------- --genome
@@ -2245,7 +2552,7 @@ def main() -> int:
     mode.add_argument("--mesh-path", action="store_true",
                       help="drive only the mesh phase (9): the engine on 2 shards of the card "
                            "against MESH_ROUNDS rounds of the K1 slice, the two-process "
-                           "collectives and the remaining modules")
+                           "collectives, the remaining modules and the dry run's mesh paths")
     mode.add_argument("--genome", nargs="?", const="3pct", choices=sorted(GENOME_RUNS),
                       help="the whole 4.6 Mb E. coli genome with stall recovery, every round "
                            "held to a committed run of the JAX package: 3pct (the default; "
@@ -2325,6 +2632,7 @@ def main() -> int:
                    len(genome), ref_round, kept, counts, trial_cache=rowdp._trial_cache,
                    device_builder=rowdp._device_builder)
         phase_stall(torch, dev, kept, counts)
+        phase_branches(torch, dev, kept, counts)
         seen = set()
         for path, k in kept.items():
             seen |= phase_main_path_kernels(torch, res, k, path)

@@ -21,7 +21,7 @@ device every screen, parent plane and walk runs as a CUDA kernel, on the
 CPU as the kernels' plain versions.
 
 Multi-contig assembly (`assemble_contigs`) restarts the engine on the
-surviving reads, as the JAX engine's does.
+surviving reads, as the JAX engine's does, on one shard or over a mesh.
 
 The multi-device round (`mesh=`, parallel/) is one round with the
 single-device one: every full-screen launch pads its batch to
@@ -29,10 +29,11 @@ ladder_size(B, 64 n) and splits it over the mesh's n shards
 (parallel/sharded.py::sharded_screen), and the elect pads its streams to
 ladder_size(N, 8 n) and sums the shards' deltas (sharded_elect_packed).
 The prefilter and the commit's parents + walk stay on the engine's
-device. Without `mesh=` the mesh is the engine's own device, one shard.
-The round's RoundStats equal the single-device round's, and its contig,
-votes, surviving reads and matches equal the JAX engine's multi-device
-run (tests/test_torch_mesh_engine.py).
+device, which must be the mesh's first. Without `mesh=` the mesh is the
+engine's own device, one shard. The round's RoundStats equal the
+single-device round's, and its contig, votes, surviving reads and matches
+equal the JAX engine's multi-device run (tests/test_torch_mesh_engine.py;
+with stall recovery, restarts and checkpoints, tests/test_torch_mesh_paths.py).
 
 Left out relative to the JAX engine: the tunnel-retry loop, the
 first-seen-shape flags of the launch log (PyTorch compiles nothing per
@@ -266,7 +267,11 @@ class BatchAssembler:
             raise ValueError(f"unknown screening kernel {screen_kernel!r} (expected {SCREEN_KERNELS})")
         self.device = resolve_device(device)
         self.screen_kernel = screen_kernel
-        # the dp mesh: one shard on the engine's device unless given
+        # the dp mesh: one shard on the engine's device unless given. The
+        # gather, the prefilter and K2 + W run on the engine's device and
+        # sharded results come back to the mesh's first device: one device
+        if mesh is not None and mesh.first != self.device:
+            raise ValueError(f"engine on {self.device}, but {mesh} starts on {mesh.first}")
         self.mesh = mesh if mesh is not None else make_mesh(devices=[self.device])
         self.cfg = cfg
         self.reads = reads
@@ -988,6 +993,7 @@ def assemble_contigs(
     *,
     device: str | torch.device = "cuda",
     screen_kernel: str = "bitwave",
+    mesh: Optional[Mesh] = None,
 ) -> tuple[list[ContigResult], list[int]]:
     """Multi-contig assembly: run the batch engine to termination, then
     RESTART on the surviving reads with a fresh random initial read, until
@@ -1002,8 +1008,9 @@ def assemble_contigs(
     contained in a larger contig (tools/postprocess.py::dedupe_contigs:
     restarts re-assembling scraps of already-covered sequence) are
     dropped from the output; their reads stay consumed. Every engine runs
-    on `device` with the screening kernel `screen_kernel`. Returns
-    (contigs, surviving_read_rows)."""
+    on `device` with the screening kernel `screen_kernel`, over `mesh`
+    when one is given (its first local device must be `device`: the shared
+    device read matrix lives there). Returns (contigs, surviving_read_rows)."""
     contigs: list[ContigResult] = []
     surviving: Optional[list[int]] = None
     cache = None
@@ -1025,6 +1032,7 @@ def assemble_contigs(
             device_builder=builder,
             device=device,
             screen_kernel=screen_kernel,
+            mesh=mesh,
         )
         if not asm.surviving:
             break

@@ -3,7 +3,10 @@ version on the same CUDA tensors, bit for bit, and the engine, multi-contig
 assembly, read accounting and `assemble --contigs` on `cuda` against the
 same on `cpu`; the engine on a 2-shard mesh on the card against its
 single-device round, the two-process collectives, the traceback, the
-word-array screen and the device twins. Marked `gpu`; skips without CUDA. Imports
+word-array screen and the device twins; the multi-device dry run's mesh
+paths (retreat, multi-contig, checkpoint) on a 2-shard mesh of the card and
+the engine's `-l`, `-d` and device_traceback=False branches against the
+cpu. Marked `gpu`; skips without CUDA. Imports
 no jax, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -870,3 +873,72 @@ def test_engine_on_a_second_card_equals_the_first():
     assert second == first and second[4][0] == 3
     assert all(counts[k] > 0 for k in ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"))
     assert all(counts[k] == 0 for k in _build.PLAIN)
+
+
+def test_mesh_paths_on_card_equal_cpu(cuda):
+    """(a) and (b) of tests/torch_mesh_paths.py: `assemble_contigs(..., 3,
+    dedupe=True)` on a 2-shard mesh of the card (its first engine is the
+    retreat run) equals the port's one-shard cpu run: ContigResults,
+    surviving reads, the log and every engine's RoundStats, contig, votes,
+    survivors and retreat counters; the card's run through the kernels
+    only, each full screen in two shards."""
+    from pacbioassembly_tpu_torch.parallel import make_mesh
+    from torch_mesh_paths import contigs_run, records
+
+    data = records()
+    _build.reset_counts()
+    card = contigs_run(data, make_mesh(devices=[cuda, cuda]), device=cuda)
+    counts = dict(_build.LAUNCHES)
+    cpu = contigs_run(data, None, device="cpu")
+    assert (card["contigs"], card["surviving"], card["log"]) == (
+        cpu["contigs"], cpu["surviving"], cpu["log"])
+    assert [_engine_state(e) for e in card["engines"]] == [
+        _engine_state(e) for e in cpu["engines"]]
+    first = card["engines"][0]
+    assert (first.nround, first.retreats, first.ref.length()) == (10, 2, 5581)
+    assert [len(c[0]) for c in card["contigs"]] == [5581, 5566] and card["surviving"] == []
+    fs = sum(e["kind"] == "fs" for rounds in card["launches"].values() for rl in rounds
+             for e in rl)
+    assert counts["bitwave_fullscreen"] == 2 * fs > 0
+    assert all(counts[k] > 0 for k in ("tbwave", "walk"))
+    assert all(counts[k] == 0 for k in _build.PLAIN)
+
+
+def test_mesh_checkpoint_on_card_equals_cpu(cuda, tmp_path):
+    """(c) of tests/torch_mesh_paths.py on a 2-shard mesh of the card: 6
+    uninterrupted rounds equal the cpu's, and the checkpoint saved at round
+    2 and resumed to round 6, on 2 shards and on one, gives their state."""
+    from pacbioassembly_tpu_torch.parallel import make_mesh
+    from torch_mesh_paths import CHECKPOINT, checkpoint_configs, checkpoint_runs, patterns
+    from torch_mesh_paths import port_reads, records
+
+    data = records()
+    runs = checkpoint_runs(data, str(tmp_path / "ck.npz"), make_mesh(devices=[cuda, cuda]),
+                           device=cuda)
+    cpu = BatchAssembler(checkpoint_configs(str(tmp_path / "unused.npz"))["full"],
+                         port_reads(data), patterns(), device="cpu")
+    cpu.run(out=None)
+    want = _engine_state(cpu)
+    assert _engine_state(runs["full"]) == want and runs["full"].mesh.size == 2
+    saved = CHECKPOINT["saved"]
+    for name in ("resumed", "resumed_1"):
+        got = _engine_state(runs[name])
+        assert got == (want[0][saved:], *want[1:]), name
+
+
+@pytest.mark.parametrize("case", ["locked", "dump", "host_traceback"])
+def test_branches_on_card_equal_cpu(cuda, case):
+    """tests/torch_branches.py's `-l`, `-d` and device_traceback=False on
+    the card equal the cpu: printed consensus, dump bytes, RoundStats,
+    contig, votes and survivors; K2 and W launch only under `-d`."""
+    from torch_branches import port_run
+
+    _build.reset_counts()
+    card = port_run(case, device=cuda)
+    counts = dict(_build.LAUNCHES)
+    cpu = port_run(case, device="cpu")
+    assert (card["out"], card["dump"]) == (cpu["out"], cpu["dump"])
+    assert _engine_state(card["engine"]) == _engine_state(cpu["engine"])
+    assert counts["bitwave_fullscreen"] > 0 and all(counts[k] == 0 for k in _build.PLAIN)
+    assert (counts["tbwave"] > 0 and counts["walk"] > 0) == (case == "dump")
+    assert counts["tbwave"] == counts["walk"]

@@ -7,6 +7,7 @@ so that tests/test_torch_gpu.py, which imports no JAX, can use it too."""
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -104,3 +105,39 @@ def assemble_contigs_both(store: str, dedupe: bool):
         jlog.getvalue().splitlines(), plog.getvalue().splitlines(), "jax", "port", lineterm=""))
     assert plog.getvalue().count("=== dropping contig") == 2 * dedupe
     return got, got_surv
+
+
+def boundary_commit_case():
+    """tests/test_batch.py::test_parallel_commit_equivalence's reads: on a
+    120 kb reference, interior copies near each boundary (half of them
+    mutated) and one grower a side, each with its one candidate. Returns
+    (L, reference codes, record bytes, candidate rows (read, j, forward,
+    r_offset)); the two-thread commit splits it unless a guard holds."""
+    rng = np.random.default_rng(5)
+    L = 120_000
+    genome = rng.integers(0, 4, L + 600).astype(np.uint8)  # 300bp tails
+    ref_codes = genome[300 : 300 + L]
+    read_list, cand_rows = [], []  # cand_rows: (read_idx, j, forward, r_offset)
+    for k in range(6):  # right-region forward reads
+        start = L - 2000 - 137 * k
+        seg = ref_codes[start : start + 1800].copy()
+        if k % 2:
+            pos = rng.choice(1800, 18, replace=False)
+            seg[pos] = (seg[pos] + 1) % 4
+        read_list.append(seg)
+        cand_rows.append((len(read_list) - 1, 0, True, start))
+    read_list.append(genome[300 + L - 1500 : 300 + L + 300].copy())  # right grower
+    cand_rows.append((len(read_list) - 1, 0, True, L - 1500))
+    for k in range(6):  # left-region backward reads
+        end = 2000 + 141 * k
+        seg = ref_codes[end - 1800 : end].copy()
+        if k % 2 == 0:
+            pos = rng.choice(1800, 18, replace=False)
+            seg[pos] = (seg[pos] + 1) % 4
+        read_list.append(seg)
+        cand_rows.append((len(read_list) - 1, 0, False, end - 1))
+    read_list.append(genome[0 : 300 + 1500].copy())  # left grower
+    cand_rows.append((len(read_list) - 1, 0, False, 1499))
+    buf = io.BytesIO()
+    binary_io.write_records(buf, read_list)
+    return L, ref_codes, buf.getvalue(), cand_rows
