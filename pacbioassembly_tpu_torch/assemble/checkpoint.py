@@ -14,13 +14,23 @@ import json
 import numpy as np
 
 from ..consensus import ConsensusRef
+from ..utils import span
 
 FORMAT_VERSION = 1
 
 
 def save_checkpoint(path: str, asm) -> None:
-    """Snapshot an Assembler/BatchAssembler mid-run."""
-    state = asm.ref.state_dict()
+    """Snapshot an Assembler/BatchAssembler mid-run, in the span
+    checkpoint.save: the state's copy (checkpoint.state), then the file
+    (checkpoint.write)."""
+    with span("checkpoint.save", root=asm.nround):
+        with span("checkpoint.state"):
+            state = asm.ref.state_dict()
+        _write(path, asm, state)
+
+
+def _write(path, asm, state: dict) -> None:
+    """The .npz of `state` and the engine's counters, survivors and RNG."""
     meta = {
         "version": FORMAT_VERSION,
         "nround": asm.nround,
@@ -36,16 +46,17 @@ def save_checkpoint(path: str, asm) -> None:
         "vote_ratio": float(state["vote_ratio"]),
     }
     rng_state = json.dumps(asm.rng.bit_generator.state)
-    np.savez_compressed(
-        path,
-        meta=json.dumps(meta),
-        rng=rng_state,
-        codes=state["codes"],
-        sel=state["sel"],
-        sup=state["sup"],
-        total=state["total"],
-        surviving=np.asarray(asm.surviving, dtype=np.int64),
-    )
+    with span("checkpoint.write"):
+        np.savez_compressed(
+            path,
+            meta=json.dumps(meta),
+            rng=rng_state,
+            codes=state["codes"],
+            sel=state["sel"],
+            sup=state["sup"],
+            total=state["total"],
+            surviving=np.asarray(asm.surviving, dtype=np.int64),
+        )
 
 
 def load_checkpoint(path: str, asm) -> None:

@@ -24,6 +24,7 @@ first-success selection is order-preserving.
 
 from __future__ import annotations
 
+import itertools
 import sys
 from typing import Iterable, Optional, TextIO
 
@@ -34,11 +35,13 @@ from ..align.screen import score_batch
 from ..codec import dna
 from ..device import resolve_device
 from ..index import SeedIndex, build_seedmap
+from ..utils import span
 
 MAX_TRIAL_J = 50   # locator.cpp:74
 MIN_READ = 500     # locator.cpp:72
 MAXN, MAXM = 40_000, 6_000  # locator.cpp:24-25
 CHUNK = 2048       # triples per device launch (bounds the dense batch)
+_CALLS = itertools.count(1)  # map_reads calls in this process: the root id of their spans
 
 
 def _read_triples(
@@ -85,18 +88,36 @@ def map_reads(
     ([(nseq, ref_pos, final_cost, len-j, diag_cost)] for each read's first
     accepted mapping, number_of_reads_processed). Decision- and
     order-identical to the reference's sequential loop (locator.cpp:68-92).
-    Scores on `device` with the screening kernel `screen_kernel`."""
+    Scores on `device` with the screening kernel `screen_kernel`.
+
+    The call is the span locate.map_reads (its count the reads
+    processed), with the children locate.index (the whole-contig seedmap),
+    locate.triples (the probe triples and their lengths; count: triples),
+    one locate.fill (the host a/b matrices) and one locate.score (the
+    copies, the kernel and the fetch) a chunk, and locate.select (the
+    first hit of each read)."""
+    with span("locate.map_reads", root=next(_CALLS)) as call:
+        rows, nproc = _map_reads(contig_codes, pattern, seqs, ratio, device, screen_kernel)
+        call.n = nproc
+    return rows, nproc
+
+
+def _map_reads(contig_codes, pattern, seqs, ratio, device, screen_kernel):
+    """map_reads inside its span."""
     dev = resolve_device(device)
     seqs = list(seqs)
-    index, _ = build_seedmap(contig_codes, pattern, max_read_len=len(contig_codes))
+    with span("locate.index"):
+        index, _ = build_seedmap(contig_codes, pattern, max_read_len=len(contig_codes))
     # reads under 500 bp are skipped WITHOUT counting (locator.cpp:72
     # `continue` jumps over the ++nseq as well)
     big = [s for s in seqs if len(s) >= MIN_READ]
 
-    tri_read, tri_j, tri_cand = _read_triples(big, index, pattern)
     clen = len(contig_codes)
-    la_all = np.array([len(big[r]) for r in tri_read], np.int64) - tri_j
-    lb_all = clen - tri_cand
+    with span("locate.triples") as triples:
+        tri_read, tri_j, tri_cand = _read_triples(big, index, pattern)
+        la_all = np.array([len(big[r]) for r in tri_read], np.int64) - tri_j
+        lb_all = clen - tri_cand
+        triples.n = len(tri_read)
 
     # one result slot per triple; scored bucket-by-bucket, chunked
     accept = np.zeros(len(tri_read), bool)
@@ -119,45 +140,48 @@ def map_reads(
         for s in range(0, len(sel), CHUNK):
             part = sel[s : s + CHUNK]
             B = len(part)
-            a_mat = np.zeros((B, cap), np.uint8)
-            b_mat = np.zeros((B, LBm), np.uint8)
-            la = np.zeros(B, np.int32)
-            lb = np.zeros(B, np.int32)
-            for bi, t in enumerate(part):
-                seq = big[tri_read[t]]
-                seg = seq[tri_j[t] :]
-                a_mat[bi, : len(seg)] = seg
-                c0 = int(tri_cand[t])
-                bslice = contig_codes[c0 : c0 + LBm]
-                b_mat[bi, : len(bslice)] = bslice
-                la[bi] = len(seg)
-                lb[bi] = clen - c0
-            res = score_batch(
-                *(torch.from_numpy(x).to(dev) for x in (a_mat, la, b_mat, lb)),
-                screen_kernel=screen_kernel, kind="locate",
-                la_max=cap, w_max=w, ratio=ratio, maxn=MAXN, maxm=MAXM,
-            )
-            accept[part] = res.accept.cpu().numpy()
-            cost[part] = res.cost.cpu().numpy()
-            diag[part] = res.diag_cost.cpu().numpy()
-            mb[part] = res.matlen_b.cpu().numpy()
+            with span("locate.fill"):
+                a_mat = np.zeros((B, cap), np.uint8)
+                b_mat = np.zeros((B, LBm), np.uint8)
+                la = np.zeros(B, np.int32)
+                lb = np.zeros(B, np.int32)
+                for bi, t in enumerate(part):
+                    seq = big[tri_read[t]]
+                    seg = seq[tri_j[t] :]
+                    a_mat[bi, : len(seg)] = seg
+                    c0 = int(tri_cand[t])
+                    bslice = contig_codes[c0 : c0 + LBm]
+                    b_mat[bi, : len(bslice)] = bslice
+                    la[bi] = len(seg)
+                    lb[bi] = clen - c0
+            with span("locate.score"):
+                res = score_batch(
+                    *(torch.from_numpy(x).to(dev) for x in (a_mat, la, b_mat, lb)),
+                    screen_kernel=screen_kernel, kind="locate",
+                    la_max=cap, w_max=w, ratio=ratio, maxn=MAXN, maxm=MAXM,
+                )
+                accept[part] = res.accept.cpu().numpy()
+                cost[part] = res.cost.cpu().numpy()
+                diag[part] = res.diag_cost.cpu().numpy()
+                mb[part] = res.matlen_b.cpu().numpy()
 
-    # first accepted triple per read, in (j, rank) order == triple order
-    hit = accept & (mb > 0)
-    first: dict[int, int] = {}
-    for t in np.nonzero(hit)[0].tolist():
-        r = int(tri_read[t])
-        if r not in first:
-            first[r] = t
+    with span("locate.select"):
+        # first accepted triple per read, in (j, rank) order == triple order
+        hit = accept & (mb > 0)
+        first: dict[int, int] = {}
+        for t in np.nonzero(hit)[0].tolist():
+            r = int(tri_read[t])
+            if r not in first:
+                first[r] = t
 
-    rows = []
-    for nseq in range(len(big)):
-        t = first.get(nseq)
-        if t is not None:
-            ln = len(big[nseq]) - int(tri_j[t])
-            rows.append(
-                (nseq, int(tri_cand[t]), int(cost[t]), ln, int(diag[t]))
-            )
+        rows = []
+        for nseq in range(len(big)):
+            t = first.get(nseq)
+            if t is not None:
+                ln = len(big[nseq]) - int(tri_j[t])
+                rows.append(
+                    (nseq, int(tri_cand[t]), int(cost[t]), ln, int(diag[t]))
+                )
     return rows, len(big)
 
 

@@ -1,6 +1,6 @@
-"""Metrics log and profiler context (the JAX package's utils/, without its
-JAX compile cache)."""
+"""Metrics log, spans and profiler context (the JAX package's utils/,
+without its JAX compile cache)."""
 
-from .metrics import MetricsLogger, profiled
+from .metrics import MetricsLogger, profiled, recording, span
 
-__all__ = ["MetricsLogger", "profiled"]
+__all__ = ["MetricsLogger", "profiled", "recording", "span"]
