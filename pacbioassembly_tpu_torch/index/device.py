@@ -24,6 +24,7 @@ import torch
 
 from ..codec.dna import SEED_LEN, SEED_SHIFTS
 from ..config import Constants
+from .seedmap import SeedIndex
 
 MASK32 = 0xFFFFFFFF
 
@@ -79,6 +80,16 @@ def device_build_seedmap(
         positions=positions[order].to(torch.int32),
         n_entries=live.sum().to(torch.int32),
     )
+
+
+def device_index(index: SeedIndex, device: torch.device) -> DeviceSeedIndex:
+    """A host SeedIndex's sorted keys and positions on `device`. The host
+    table holds no key 0 (build_seedmap drops the poly-A seeds), so every
+    entry is live and none is padding."""
+    keys = torch.from_numpy(index.keys.astype(np.int64)).to(device)
+    positions = torch.from_numpy(np.asarray(index.positions, np.int32)).to(device)
+    n_entries = torch.tensor(index.n_entries, dtype=torch.int32, device=device)
+    return DeviceSeedIndex(keys, positions, n_entries)
 
 
 def device_lookup(index: DeviceSeedIndex, queries: torch.Tensor):

@@ -508,6 +508,66 @@ def test_engine_on_card_equals_cpu(cuda, screen_kernel):
     assert all(c[2][k] == 0 for k in _build.KERNELS)
 
 
+def test_expansion_on_card_equals_cpu_round_for_round(cuda, monkeypatch):
+    """Six engine rounds: the card's candidate expansion (expand_device 1)
+    gives the CPU engine's candidates and dropped count, round for round."""
+    from pacbioassembly_tpu_torch.assemble import batch
+
+    _, reads, _ = simulate(SimConfig(genome_len=8000, coverage=10.0, mean_read_len=800,
+                                     min_read_len=600, max_read_len=1000, seed=5,
+                                     sub_rate=0.03, ins_rate=0.03, del_rate=0.03))
+    path = os.path.join(tempfile.mkdtemp(), "r.bin")
+    with open(path, "wb") as fh:
+        binary_io.write_records(fh, reads)
+    cfg = AssemblyConfig(engine="batch", rng_seed=3, pattern_schedule="roundrobin",
+                         max_round=6, prefilter_min_batch=1)
+    pats = dna.load_patterns(SEEDS)
+    real = batch.expand_candidates
+    rounds = {}
+
+    def kept(*a, **k):
+        out = real(*a, **k)
+        c, dropped, phase = out
+        got.append(([getattr(c, f).copy() for f in ("read", "j", "forward", "r_offset", "rank")],
+                     dropped, phase["expand_device"]))
+        return out
+
+    monkeypatch.setattr(batch, "expand_candidates", kept)
+    for dev in ("cuda", "cpu"):
+        got = rounds[dev] = []
+        asm = BatchAssembler(cfg, ReadStore.from_file(path, cfg), pats, device=dev)
+        asm.run()
+    g, c = rounds["cuda"], rounds["cpu"]
+    assert len(g) == len(c) == 6
+    assert sum(len(fields[0]) for fields, _, _ in c) > 0
+    for k, ((gf, gd, ge), (cf, cd, ce)) in enumerate(zip(g, c)):
+        assert (ge, ce) == (1, 0), k
+        assert gd == cd, k
+        for a, b in zip(gf, cf):
+            assert a.dtype == b.dtype and np.array_equal(a, b), k
+
+
+def test_restarts_share_one_device_copy_of_the_trial_seeds(cuda, monkeypatch, tmp_path):
+    """assemble_contigs on the card: every engine after the first reuses
+    the trial-seed cache's device copy; it is uploaded once."""
+    from pacbioassembly_tpu_torch.assemble import batch
+
+    uploads = []
+    real = batch.TrialSeedCache._upload
+
+    def upload(self, device):
+        uploads.append(device)
+        return real(self, device)
+
+    monkeypatch.setattr(batch.TrialSeedCache, "_upload", upload)
+    store = write_two_segments(tmp_path)
+    cfg = AssemblyConfig(**CONFIG)
+    contigs, _ = assemble_contigs(cfg, ReadStore.from_file(store, cfg),
+                                  dna.load_patterns(SEEDS), 3, device="cuda")
+    assert len(contigs) >= 2
+    assert uploads == [torch.device("cuda", 0)]
+
+
 @pytest.mark.parametrize("dedupe", [False, True])
 def test_assemble_contigs_on_card_equals_cpu(cuda, dedupe, tmp_path):
     """The two-segment store of tests/test_batch.py::test_multi_contig_assembly,

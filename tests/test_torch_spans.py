@@ -63,9 +63,10 @@ PHASE_SPANS = {
     "fullscreen_s": "round.screen.full", "tb_s": "round.commit.traceback",
     "host_commit_s": "round.commit.host", "elect_s": "round.commit.elect",
 }
-# the keys phase_s had before the spans, less slow_launch_kind, _s and _shape
+# the keys phase_s had before the spans, less slow_launch_kind, _s and _shape, plus
+# expand_device (0 here: the expansion runs on the host for a CPU engine)
 PHASE_KEYS = set(PHASE_SPANS) | {"retreats", "prefilter_kept", "launches", "fullscreen_n",
-                                 "host_aligns", "device_commits"}
+                                 "host_aligns", "device_commits", "expand_device"}
 
 
 def store(tmp) -> ReadStore:
@@ -150,6 +151,7 @@ def test_phase_s_values_are_their_spans_durations(rounds):
     assert len(phases) == ROUNDS
     for k, ph in enumerate(phases, start=1):
         assert set(ph) == PHASE_KEYS, k
+        assert ph["expand_device"] == 0, k
         for key, name in PHASE_SPANS.items():
             got = [r for r in by_name(recs, name) if r["root"] == k]
             assert len(got) == 1, (k, name)
