@@ -5,9 +5,10 @@ reads in the order of the run's seed, those within `fixed_span` of the
 engine's first read held in place, so that every seed assembles the same
 region in the same commit order) and handed to the program as binary records; the engine is built with its
 trial-seed cache and device read matrix, then warmed up by its first
-rounds, until every kernel the window uses has launched and the contig is
-`warm_contig_len` long (twice the seed index's window: the steady round,
-where the whole genome spends nearly all its rounds). The window runs
+rounds, until every kernel the window uses has launched, the engine is on
+contig `window_contig` (default 0) and that contig is `warm_contig_len`
+long (twice the seed index's window: the steady round, where the whole
+genome spends nearly all its rounds). The window runs
 rounds through the engine's public `run` (max_round one past the current
 round: the round and its stall recovery), the checkpoint of the published
 cadence saved by the entry every `checkpoint_every` rounds into TMPDIR and
@@ -25,6 +26,9 @@ drawn across the window, one in each of as many equal parts of its first
 drawn from the seed in that part), each replayed by the reference from
 the program's state before it, stage by stage; and the last checkpoint read
 back from its file and loaded by the engine, against the state it saved.
+With `parallel_commit` (the engine's two-thread host commit), the window
+has to hold a round that took the split, and each replayed round has to
+take it where the reference's guard does.
 """
 
 from __future__ import annotations
@@ -161,6 +165,28 @@ class Launches:
         return {"K1": k1 if self.k1 else None, "K2": k2 if self.k2 else None}
 
 
+class Splits:
+    """Counts the host commits that took the engine's two-thread split: the
+    split is where the commit opens its pool of two threads
+    (batch.ThreadPoolExecutor)."""
+
+    def __init__(self, batch):
+        self.batch, self.real, self.n = batch, batch.ThreadPoolExecutor, 0
+
+    def install(self):
+        splits = self
+
+        class Counted(self.real):
+            def __init__(self, *a, **k):
+                splits.n += 1
+                super().__init__(*a, **k)
+
+        self.batch.ThreadPoolExecutor = Counted
+
+    def remove(self):
+        self.batch.ThreadPoolExecutor = self.real
+
+
 class Engines:
     """The engine of the current contig; when a contig ends, the next starts
     on the survivors (`make(contig, surviving)`)."""
@@ -217,7 +243,8 @@ def run(r) -> dict:
     start = snapshot(eng_.asm)
 
     cap = Capture(batch)
-    records, saved, times, ck_s, phases, nmatch = [], None, [], [], [], 0
+    splits = Splits(batch)
+    records, saved, times, ck_s, phases, nmatch, split_of = [], None, [], [], [], 0, []
     tmp = tempfile.TemporaryDirectory(prefix="portbench_")  # removed at exit if not before
     ck_path = os.path.join(tmp.name, "ck.npz")
 
@@ -229,6 +256,7 @@ def run(r) -> dict:
         nr = asm.nround + 1
         pre = snapshot(asm) if sampled else None
         cap.on, cap.got = sampled, {}
+        n0 = splits.n
         ts = time.perf_counter()
         with tr.span(STEP):
             left = eng_.step()
@@ -239,23 +267,26 @@ def run(r) -> dict:
                 ck_s.append(time.perf_counter() - tc)
         te = time.perf_counter()
         cap.on = False
+        split_of.append(splits.n > n0)
         if nr % every == 0:
             saved = snapshot(asm)
         if sampled:
-            records.append((pre, dict(cap.got), dataclasses.asdict(asm.history[-1]),
-                            snapshot(asm)))
+            records.append((pre, dict(cap.got, split=split_of[-1]),
+                            dataclasses.asdict(asm.history[-1]), snapshot(asm)))
         return left, te - ts, asm
 
-    # warm-up: the first rounds, until every kernel of the window has launched
-    # and the contig has reached the steady round (both ends' seed windows
-    # full)
+    # warm-up: the first rounds, until every kernel of the window has launched,
+    # the engine is on contig `window_contig` and that contig has reached the
+    # steady round (both ends' seed windows full)
     _build.reset_counts()
     for _ in range(WARMUP_MAX):
         play(False, Trace(torch, False))
         if (all(_build.LAUNCHES[k] for k in KERNELS[r.dev.type])
+                and eng_.contig >= r.mix.get("window_contig", 0)
                 and eng_.asm.ref.length() >= r.mix["warm_contig_len"]):
             break
     ck_s.clear()
+    split_of.clear()
     r.log(f"warm-up: contig {eng_.contig} at round {eng_.asm.nround}, "
           f"{eng_.asm.ref.length()} bp, launches {dict(_build.LAUNCHES)}")
 
@@ -268,6 +299,7 @@ def run(r) -> dict:
     stalls = 0
     cap.accepted = []
     cap.install()
+    splits.install()
     if launches:
         launches.install()
     setup_s = r.clock()
@@ -292,6 +324,7 @@ def run(r) -> dict:
         r.close_window()
     finally:
         cap.remove()
+        splits.remove()
         if launches:
             launches.remove()
     restarts = eng_.contig - restarts0
@@ -299,10 +332,14 @@ def run(r) -> dict:
     r.log(f"window: {len(times)} rounds in {window_s:.3f} s, {nmatch} reads, "
           f"{len(ck_s)} saves, {restarts} restarts, {stalls} rounds with no read, "
           f"{retreats} edge retreats, {len(records)} rounds kept for the check "
-          f"({[p['nround'] + 1 for p, *_ in records]})")
+          f"({[p['nround'] + 1 for p, *_ in records]}); {sum(split_of)} of {len(times)} rounds "
+          f"took the two-thread host commit")
 
     checks = verify(r, data, eng, patterns, start, records, cap.accepted, saved, ck_path,
                     lambda: engine_for(0, None), load_checkpoint)
+    if eng["parallel_commit"]:
+        # the split the cell exists for has to have run in the window
+        checks["split_rounds_missing"] = {"value": int(not any(split_of)), "limit": 0}
     cap.accepted = None
     tmp.cleanup()
 
@@ -315,7 +352,7 @@ def run(r) -> dict:
             "round_s_p90": float(np.percentile(times, 90)),
         },
         "readings": {
-            "phases": phases, "checkpoint_s": ck_s, "trace": trace,
+            "phases": phases, "checkpoint_s": ck_s, "round_s": times, "trace": trace,
             "least_s": launches.least_seconds() if launches else {},
         },
         "checks": checks,
@@ -331,6 +368,8 @@ def verify(r, data, eng, patterns, start, records, accepted, saved, ck_path, fre
     st0, rng0 = ref_engine.initial_state(reads, eng["rng_seed"])
     diff = {k: 0 for k in ("start", "accepted", "candidates", "screen", "votes", "contig",
                            "reads", "counters", "checkpoint")}
+    if eng["parallel_commit"]:
+        diff["split"] = 0  # replayed rounds split by one of the program and the reference only
     diff["start"] = state_diff(start["state"], st0) + int(start["rng"] != rng0)
     seeds, valid = ref_engine.trial_seeds(reads, eng["max_trial"], eng["overlap_min"])
     r.log(f"check: trial seeds of {len(reads)} reads in {time.perf_counter() - t0:.1f} s")
@@ -342,7 +381,11 @@ def verify(r, data, eng, patterns, start, records, accepted, saved, ck_path, fre
         t1 = time.perf_counter()
         want = ref_engine.replay_round(pre, reads, seeds, valid, patterns, eng, r.dev)
         r.log(f"check: round {pre['nround'] + 1} replayed in {time.perf_counter() - t1:.1f} s "
-              f"({len(want['cands']['read'])} candidates, {want['nmatches']} reads consumed)")
+              f"({len(want['cands']['read'])} candidates, {want['nmatches']} reads consumed, "
+              f"host commit {'split' if want['split'] else 'in read order'}; "
+              f"the program's {'split' if got.get('split') else 'in read order'})")
+        if "split" in diff:
+            diff["split"] += int(bool(got.get("split")) != want["split"])
         cw, cg = want["cands"], got.get("cands")
         if cg is None or len(cg["read"]) != len(cw["read"]):
             diff["candidates"] += max(len(cw["read"]), 1)

@@ -2,7 +2,8 @@
 
 The readings an entry returns: `phases` (each window round's phase
 seconds, as the program reports them in phase_s), `checkpoint_s` (the
-benchmark's own span around each save), `trace` (harness.read_trace of
+benchmark's own span around each save), `round_s` (each window round's
+seconds, its save included), `trace` (harness.read_trace of
 the window) and `least_s` (each kernel class's least time over the
 window's launches, reference/bound.py). A reader returns None where it
 finds nothing to read.

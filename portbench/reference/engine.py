@@ -9,8 +9,9 @@ over the first `prefilter_len` bases at `prefilter_ratio`, then the full
 banded DP in chunks of 4,096 longest-first, each at its own size bucket),
 the commit (each read's first accepted candidate: interior ones vote from
 the plain parent plane and walk, the others go through the plain host
-aligner against the current consensus, in read order), and the plain
-evolve; then the stall recovery of the engine's round loop (edge retreat).
+aligner against the current consensus, in read order or, with
+`parallel_commit`, in the order of the engine's two-thread split), and the
+plain evolve; then the stall recovery of the engine's round loop (edge retreat).
 
 `replay_round` starts from a snapshot of the program's state before the
 round (consensus, surviving reads, counters and the generator state of
@@ -211,14 +212,16 @@ def screen(ref: Consensus, reads: Reads, alive, cands, cfg: dict, prefilter_on: 
 
 
 def commit(ref: Consensus, reads: Reads, alive, cands, accept, ma, mb, seg_len, ref_len,
-           cfg: dict, dev) -> list[int]:
-    """Each read's first accepted candidate, in read order; returns the
-    consumed rows of the surviving list."""
+           cfg: dict, dev) -> tuple[list[int], bool]:
+    """Each read's first accepted candidate: the device traceback's reads
+    vote after the host reads, which commit in read order or, where the
+    engine splits them, in the split's order (`host_order`). Returns the
+    consumed rows of the surviving list and whether the split was taken."""
     by_read: dict[int, list[int]] = {}
     for n in np.nonzero(accept)[0].tolist():
         by_read.setdefault(int(cands["read"][n]), []).append(n)
     if not by_read:
-        return []
+        return [], False
     chosen = {r: ns[0] for r, ns in by_read.items()}
     tb = {}
     if cfg["device_traceback"]:
@@ -241,12 +244,16 @@ def commit(ref: Consensus, reads: Reads, alive, cands, accept, ma, mb, seg_len, 
                     tb[n] = (ops[q, : ne[q]], vals[q, : ne[q]])
     pending, consumed = [], []
     align = lambda x, y: aligner.align(x, y, cfg["ratio"])  # noqa: E731
+    host = []
     for r in sorted(by_read):
         n0 = chosen[r]
         if n0 in tb:
             pending.append(n0)
             consumed.append(r)
-            continue
+        else:
+            host.append(r)
+    order, split = host_order(ref, reads, cands, host, by_read, cfg)
+    for r in order:
         codes = reads.codes(int(alive[r]))
         for n in by_read[r]:
             j = int(cands["j"][n])
@@ -257,7 +264,34 @@ def commit(ref: Consensus, reads: Reads, alive, cands, accept, ma, mb, seg_len, 
                 break
     for n in pending:
         ref.elect(int(cands["r_offset"][n]), *tb[n], bool(cands["forward"][n]))
-    return sorted(consumed)
+    return sorted(consumed), split
+
+
+def host_order(ref: Consensus, reads: Reads, cands, host: list[int], by_read: dict,
+               cfg: dict) -> tuple[list[int], bool]:
+    """The order in which the host reads `host` (in read order) commit, and
+    whether the engine's two-thread split takes them. The split needs
+    `parallel_commit`, a consensus of L >= 2 * reach bases, where reach =
+    max_read_len + int(the store's longest read * (1 + ratio)) + 64 bounds
+    the cells one side's alignments touch from its own end, at least 4 host
+    reads, and none of a locked consensus, a dump of the alignments or the
+    stale-DP quirk. Then a read whose accepted candidates all lie at
+    r_offset < L // 2 is a left read, all at or beyond it a right read, and
+    one with candidates on both sides a mixed read: the two sides commit in
+    two threads, each in read order, and the mixed reads after both, in read
+    order. The sides share no cell, so serially that is the left reads, then
+    the right, then the mixed."""
+    L = ref.length()
+    reach = cfg["max_read_len"] + int(int(reads.lengths.max()) * (1.0 + cfg["ratio"])) + 64
+    if (not cfg["parallel_commit"] or cfg.get("locked") or cfg.get("quirk_stale_dp")
+            or L < 2 * reach or len(host) < 4):
+        return host, False
+    mid = L // 2
+    side = {r: {int(cands["r_offset"][n]) >= mid for n in by_read[r]} for r in host}
+    left = [r for r in host if side[r] == {False}]
+    right = [r for r in host if side[r] == {True}]
+    mixed = [r for r in host if len(side[r]) == 2]
+    return left + right + mixed, True
 
 
 def audit_accepts(rounds: list[dict], reads: Reads, cfg: dict, dev) -> tuple[int, int]:
@@ -324,7 +358,7 @@ def replay_round(snap: dict, reads: Reads, seeds, valid, patterns, cfg: dict, de
         2 * len(reads) * (-(-lmax // 128) * 128) <= MATRIX_BYTES)
     accept, ma, mb, kept, seg_len, ref_len = screen(ref, reads, alive, cands, cfg,
                                                     prefilter_on, dev)
-    consumed = commit(ref, reads, alive, cands, accept, ma, mb, seg_len, ref_len, cfg, dev)
+    consumed, split = commit(ref, reads, alive, cands, accept, ma, mb, seg_len, ref_len, cfg, dev)
     committed = ref.state()
     gone = set(consumed)
     surviving = [int(i) for r, i in enumerate(alive.tolist()) if r not in gone]
@@ -350,7 +384,7 @@ def replay_round(snap: dict, reads: Reads, seeds, valid, patterns, cfg: dict, de
     return {
         "pattern": pattern, "n_indexed": n_indexed, "cands": cands, "dropped": dropped,
         "accept": accept, "ma": ma, "mb": mb, "prefilter_kept": kept,
-        "committed": committed, "nmatches": nmatches,
+        "committed": committed, "nmatches": nmatches, "split": split,
         "state": ref.state(), "surviving": surviving, "nfailure": nfailure,
         "retreats": retreats, "fruitless_retreats": fruitless, "matches_since_retreat": since,
         "rng": rng.bit_generator.state,

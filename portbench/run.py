@@ -68,6 +68,22 @@ def install_control(torch):
     return lambda: setattr(bitwave, "batch_score_bitwave", real)
 
 
+def settings(conf: dict, mix: dict) -> tuple[dict, dict]:
+    """The configuration as the cell runs it: the mix's `engine` keys and
+    `screen_kernel` over the configuration's own. Returns (the settings,
+    what the mix overrode); a key the configuration does not state is a
+    ValueError."""
+    eng = mix.get("engine", {})
+    unknown = sorted(set(eng) - set(conf["engine"]))
+    if unknown:
+        raise ValueError(f"the mix sets engine keys that {conf['name']} does not state: {unknown}")
+    over = {f"engine.{k}": v for k, v in eng.items()}
+    out = dict(conf, engine=dict(conf["engine"], **eng))
+    if "screen_kernel" in mix:
+        over["screen_kernel"] = out["screen_kernel"] = mix["screen_kernel"]
+    return out, over
+
+
 def main(argv=None, *, device=None, config=None, mix=None, control=False) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -85,6 +101,13 @@ def main(argv=None, *, device=None, config=None, mix=None, control=False) -> int
     cell = cells[args.workload]
     conf = config or harness.load_json("configs", cell["config"])
     mixd = mix or harness.load_json("mixes", cell["traffic"])
+    try:
+        conf, over = settings(conf, mixd)
+    except ValueError as e:
+        harness.log(f"{args.workload}: {e}")
+        return 2
+    if over:
+        harness.log(f"the mix {cell['traffic']} overrides {over}")
 
     import torch
 

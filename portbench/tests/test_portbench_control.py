@@ -28,7 +28,8 @@ SEEDS = (3_000_000_001, 3_000_000_002, 3_000_000_003)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("cell", ["ecoli_clr15.grow", "ecoli_3pct.grow", "ecoli_3pct.locate"])
+@pytest.mark.parametrize("cell", ["ecoli_clr15.grow", "ecoli_3pct.grow", "ecoli_3pct.locate",
+                                  "ecoli_3pct.grow_pcommit"])
 def test_control_is_not_correct(cell, seed):
     import torch
 

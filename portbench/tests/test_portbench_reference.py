@@ -67,6 +67,11 @@ def test_error_profile_rates():
     assert ins > dele > sub
 
 
+# the end-to-end metrics of each grow cell: the CLR cell's round tail is read per layer
+GROW_E2E = {"ecoli_clr15.grow": {"assembled_reads_per_s", "setup_s"},
+            "ecoli_3pct.grow": {"assembled_reads_per_s", "round_s_p90", "setup_s"}}
+
+
 @pytest.mark.parametrize("cell", ["ecoli_clr15.grow", "ecoli_3pct.grow"])
 def test_grow_rounds_equal_the_reference(cell):
     conf, mix = tiny(cell)
@@ -75,7 +80,28 @@ def test_grow_rounds_equal_the_reference(cell):
     assert res["correct"], res["checks"]
     assert all(c["value"] == 0 for c in res["checks"].values())
     assert res["attempted"] >= 1
-    assert set(res["metrics"]) == {"assembled_reads_per_s", "round_s_p90", "setup_s"}
+    assert set(res["metrics"]) == GROW_E2E[cell]
+
+
+def test_traced_clr_run_reads_the_round_tail_and_the_saves_per_layer():
+    conf, mix = tiny("ecoli_clr15.grow")
+    rc, res = run_cell("ecoli_clr15.grow", 2**31 + 13, 2.0, trace=1, config=conf, mix=mix)
+    assert rc == 0 and res["correct"], res["checks"]
+    got = res["metrics"]
+    assert "round_s_p90" not in got and "checkpoint_ms" not in got
+    assert got["round_s_p90.rate"]["value"] > 0 and got["round_s_p90.rate"]["unit"] == "s"
+    assert got["checkpoint_ms.rate"]["value"] > 0
+
+
+def test_round_tail_and_save_readers():
+    from portbench import harness
+
+    tail = harness.load_module("metrics", "round_s_p90.rate")
+    saves = harness.load_module("metrics", "checkpoint_ms.rate")
+    assert tail.read({}) is None and saves.read({"checkpoint_s": []}) is None
+    times = [0.1 * (i + 1) for i in range(10)]
+    assert tail.read({"round_s": times}) == pytest.approx(float(np.percentile(times, 90)))
+    assert saves.read({"checkpoint_s": [0.5, 0.7]}) == pytest.approx(600.0)
 
 
 def test_locate_rows_equal_the_reference():
