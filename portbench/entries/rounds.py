@@ -8,7 +8,9 @@ trial-seed cache and device read matrix, then warmed up by its first
 rounds, until every kernel the window uses has launched, the engine is on
 contig `window_contig` (default 0) and that contig is `warm_contig_len`
 long (twice the seed index's window: the steady round, where the whole
-genome spends nearly all its rounds). The window runs
+genome spends nearly all its rounds). A warm-up that has not met its
+gate after WARMUP_MAX rounds stops the run (exit 1), naming what it
+lacks. The window runs
 rounds through the engine's public `run` (max_round one past the current
 round: the round and its stall recovery), the checkpoint of the published
 cadence saved by the entry every `checkpoint_every` rounds into TMPDIR and
@@ -41,7 +43,7 @@ import time
 
 import numpy as np
 
-from ..harness import CHECKPOINT, STEP, WINDOW, Trace, host_phase, read_trace
+from ..harness import CHECKPOINT, STEP, WINDOW, Stop, Trace, host_phase, read_trace
 from ..reference import bound, engine as ref_engine
 
 PHASES = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s")
@@ -49,6 +51,19 @@ PHASES = ("seedmap_s", "expand_s", "screen_s", "commit_s", "evolve_s")
 KERNELS = {"cuda": ("bitwave_prefilter", "bitwave_fullscreen", "tbwave", "walk"),
            "cpu": ("plain_batch_score", "plain_parents", "plain_walk")}
 WARMUP_MAX = 400  # rounds
+
+
+def warm_unmet(launches: dict, device: str, contig: int, length: int, mix: dict) -> list[str]:
+    """The warm-up's gate: what it still lacks (empty once it is met)."""
+    out = []
+    cold = [k for k in KERNELS[device] if not launches[k]]
+    if cold:
+        out.append(f"counters still at 0: {cold}")
+    if contig < mix.get("window_contig", 0):
+        out.append(f"on contig {contig}, window_contig {mix['window_contig']}")
+    if length < mix["warm_contig_len"]:
+        out.append(f"contig {contig} is {length} bp, warm_contig_len {mix['warm_contig_len']}")
+    return out
 
 
 def snapshot(asm) -> dict:
@@ -220,9 +235,8 @@ def run(r) -> dict:
     from ..reference import store as gen
 
     conf, eng = r.config, r.config["engine"]
-    # the engine's first read (its first draw) stays where it is; the others move
-    first = int(np.random.default_rng(eng["rng_seed"]).integers(0, gen.n_reads(conf["store"])))
-    data = gen.generate(conf["store"], r.seed, r.dev, hold=first, fixed_span=r.mix["fixed_span"])
+    # the engine's first read and its region stay where they are; the others move
+    data = gen.generate(conf["store"], r.seed, r.dev, engine=eng, fixed_span=r.mix["fixed_span"])
     if r.dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(r.dev)
     reads = ReadStore(data["records"], min_read_len=eng["min_read_len"],
@@ -281,10 +295,13 @@ def run(r) -> dict:
     _build.reset_counts()
     for _ in range(WARMUP_MAX):
         play(False, Trace(torch, False))
-        if (all(_build.LAUNCHES[k] for k in KERNELS[r.dev.type])
-                and eng_.contig >= r.mix.get("window_contig", 0)
-                and eng_.asm.ref.length() >= r.mix["warm_contig_len"]):
+        unmet = warm_unmet(_build.LAUNCHES, r.dev.type, eng_.contig, eng_.asm.ref.length(), r.mix)
+        if not unmet:
             break
+    else:
+        tmp.cleanup()
+        raise Stop(f"the warm-up did not meet its gate in {WARMUP_MAX} rounds (contig "
+                   f"{eng_.contig} at round {eng_.asm.nround}): " + "; ".join(unmet))
     ck_s.clear()
     split_of.clear()
     r.log(f"warm-up: contig {eng_.contig} at round {eng_.asm.nround}, "
@@ -296,13 +313,14 @@ def run(r) -> dict:
     pending = [(i + u[i]) / k * check["span"] * r.seconds for i in range(k)]
     launches = Launches(bitwave, gather) if r.trace else None
     restarts0, retreats0 = eng_.contig, eng_.asm.retreats
-    stalls = 0
+    stalls, ntrials = 0, []
     cap.accepted = []
     cap.install()
     splits.install()
     if launches:
         launches.install()
     setup_s = r.clock()
+    warm = dict(_build.LAUNCHES)
     r.open_window()
     try:
         with Trace(torch, r.trace) as tr:
@@ -318,6 +336,7 @@ def run(r) -> dict:
                     phases.append({k: asm.phase_s.get(k, 0.0) for k in
                                    PHASES + ("lookup_s", "host_commit_s")})
                     nmatch += asm.history[-1].nmatches
+                    ntrials.append(asm.history[-1].ntrials)
                     if not left or time.perf_counter() - t0 >= r.seconds:
                         break
                 window_s = time.perf_counter() - t0
@@ -333,7 +352,9 @@ def run(r) -> dict:
           f"{len(ck_s)} saves, {restarts} restarts, {stalls} rounds with no read, "
           f"{retreats} edge retreats, {len(records)} rounds kept for the check "
           f"({[p['nround'] + 1 for p, *_ in records]}); {sum(split_of)} of {len(times)} rounds "
-          f"took the two-thread host commit")
+          f"took the two-thread host commit; candidates a round: median "
+          f"{np.median(ntrials):.0f}, max {max(ntrials)}; launches in the window "
+          f"{ {k: v - warm[k] for k, v in _build.LAUNCHES.items() if v > warm[k]} }")
 
     checks = verify(r, data, eng, patterns, start, records, cap.accepted, saved, ck_path,
                     lambda: engine_for(0, None), load_checkpoint)
@@ -382,6 +403,7 @@ def verify(r, data, eng, patterns, start, records, accepted, saved, ck_path, fre
         want = ref_engine.replay_round(pre, reads, seeds, valid, patterns, eng, r.dev)
         r.log(f"check: round {pre['nround'] + 1} replayed in {time.perf_counter() - t1:.1f} s "
               f"({len(want['cands']['read'])} candidates, {want['nmatches']} reads consumed, "
+              f"{want['host_aligns']} host aligns, "
               f"host commit {'split' if want['split'] else 'in read order'}; "
               f"the program's {'split' if got.get('split') else 'in read order'})")
         if "split" in diff:
@@ -411,6 +433,7 @@ def verify(r, data, eng, patterns, start, records, accepted, saved, ck_path, fre
         diff["counters"] += sum(int(post[k] != want[k]) for k in (
             "nfailure", "retreats", "fruitless_retreats", "matches_since_retreat", "rng"))
     if saved is not None:
+        t1 = time.perf_counter()
         with np.load(ck_path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
             on_disk = {"codes": z["codes"], "sel": z["sel"], "sup": z["sup"], "total": z["total"],
@@ -425,6 +448,8 @@ def verify(r, data, eng, patterns, start, records, accepted, saved, ck_path, fre
         diff["checkpoint"] += state_diff(snapshot(back)["state"], saved["state"])
         diff["checkpoint"] += int(back.surviving != saved["surviving"])
         del back
+        r.log(f"check: checkpoint of round {saved['nround']} read back in "
+              f"{time.perf_counter() - t1:.1f} s")
     r.log(f"check: start, {len(records)} rounds replayed "
           f"({[p['nround'] + 1 for p, *_ in records]}), "
           f"checkpoint {'round ' + str(saved['nround']) if saved else 'not saved in the window'}"

@@ -30,6 +30,11 @@ def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
+class Stop(Exception):
+    """An entry ends the run with no result (the run cannot reach its
+    window): the message goes to standard error, and the run exits 1."""
+
+
 def manifest(root: str = ROOT) -> dict:
     with open(os.path.join(root, "BENCHMARK.json")) as fh:
         return json.load(fh)

@@ -212,11 +212,12 @@ def screen(ref: Consensus, reads: Reads, alive, cands, cfg: dict, prefilter_on: 
 
 
 def commit(ref: Consensus, reads: Reads, alive, cands, accept, ma, mb, seg_len, ref_len,
-           cfg: dict, dev) -> tuple[list[int], bool]:
+           cfg: dict, dev, tally: dict | None = None) -> tuple[list[int], bool]:
     """Each read's first accepted candidate: the device traceback's reads
     vote after the host reads, which commit in read order or, where the
     engine splits them, in the split's order (`host_order`). Returns the
-    consumed rows of the surviving list and whether the split was taken."""
+    consumed rows of the surviving list and whether the split was taken;
+    counts the host aligns in `tally["host_aligns"]`, where given."""
     by_read: dict[int, list[int]] = {}
     for n in np.nonzero(accept)[0].tolist():
         by_read.setdefault(int(cands["read"][n]), []).append(n)
@@ -243,7 +244,12 @@ def commit(ref: Consensus, reads: Reads, alive, cands, accept, ma, mb, seg_len, 
                 for q, n in enumerate(part):
                     tb[n] = (ops[q, : ne[q]], vals[q, : ne[q]])
     pending, consumed = [], []
-    align = lambda x, y: aligner.align(x, y, cfg["ratio"])  # noqa: E731
+
+    def align(x, y):
+        if tally is not None:
+            tally["host_aligns"] += 1
+        return aligner.align(x, y, cfg["ratio"])
+
     host = []
     for r in sorted(by_read):
         n0 = chosen[r]
@@ -358,7 +364,9 @@ def replay_round(snap: dict, reads: Reads, seeds, valid, patterns, cfg: dict, de
         2 * len(reads) * (-(-lmax // 128) * 128) <= MATRIX_BYTES)
     accept, ma, mb, kept, seg_len, ref_len = screen(ref, reads, alive, cands, cfg,
                                                     prefilter_on, dev)
-    consumed, split = commit(ref, reads, alive, cands, accept, ma, mb, seg_len, ref_len, cfg, dev)
+    tally = {"host_aligns": 0}
+    consumed, split = commit(ref, reads, alive, cands, accept, ma, mb, seg_len, ref_len, cfg, dev,
+                             tally)
     committed = ref.state()
     gone = set(consumed)
     surviving = [int(i) for r, i in enumerate(alive.tolist()) if r not in gone]
@@ -385,6 +393,7 @@ def replay_round(snap: dict, reads: Reads, seeds, valid, patterns, cfg: dict, de
         "pattern": pattern, "n_indexed": n_indexed, "cands": cands, "dropped": dropped,
         "accept": accept, "ma": ma, "mb": mb, "prefilter_kept": kept,
         "committed": committed, "nmatches": nmatches, "split": split,
+        "host_aligns": tally["host_aligns"],
         "state": ref.state(), "surviving": surviving, "nfailure": nfailure,
         "retreats": retreats, "fruitless_retreats": fruitless, "matches_since_retreat": since,
         "rng": rng.bit_generator.state,

@@ -9,12 +9,16 @@ base a substitution (to one of the three other bases), a deletion, and an
 insertion after it (a uniform base), each at its own rate. The genome and
 the reads come from the configuration's own `seed` (the published
 simulator seed); the run's seed orders the reads in the store: a random
-permutation of the reads, except that with `hold` (the position the engine
-starts its first contig from) every read whose middle lies within
-`fixed_span` / 2 bases of that read's middle keeps its position. So every
-run seed holds the same reads in another order, and the region the window
-assembles is read in the same order (the commit order, which sets the
-trajectory). The same seeds on the same
+permutation of the reads, except that with `engine` (the engine's
+settings) the read it starts its first contig from, drawn as the engine
+draws it from its `rng_seed` among the reads it keeps (`min_read_len` <
+length < `max_read_len`), keeps its position, and so does every read whose
+middle lies within `fixed_span` / 2 bases of that read's middle, and every
+read the engine drops (one clipped at the store's `max_read_len` that
+insertions lengthen past the engine's): the engine numbers the reads it
+keeps alike under every seed. So every run seed holds the same reads in
+another order, and the region the window assembles is read in the same
+order (the commit order, which sets the trajectory). The same seeds on the same
 kind of device give the same store. Returns host numpy arrays: the flat
 read codes with their offsets and lengths, the genome, and the store as
 the assembler's binary records ([u32 length][2-bit codes, first base in
@@ -23,6 +27,7 @@ bits 7-6]).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 ERROR_PROFILES = {"uniform": (1, 1, 1), "clr": (1, 12, 4)}  # sub : ins : del
@@ -38,7 +43,7 @@ def n_reads(store: dict) -> int:
     return max(1, int(store["coverage"] * store["genome_len"] / store["mean_read_len"]))
 
 
-def generate(store: dict, seed: int, device, hold: int | None = None,
+def generate(store: dict, seed: int, device, engine: dict | None = None,
              fixed_span: int = 0) -> dict:
     dev = torch.device(device)
     g = torch.Generator(device=dev)
@@ -78,10 +83,12 @@ def generate(store: dict, seed: int, device, hold: int | None = None,
     order.manual_seed(int(seed) % (1 << 63))
     perm = torch.arange(n, device=dev)
     moved = torch.ones(n, dtype=torch.bool, device=dev)
-    if hold is not None:
+    if engine is not None:
+        kept = (out_len > engine["min_read_len"]) & (out_len < engine["max_read_len"])
+        draw = int(np.random.default_rng(engine["rng_seed"]).integers(0, int(kept.sum())))
+        hold = torch.nonzero(kept).flatten()[draw]
         mid = starts.double() + lens.double() / 2
-        moved = (mid - mid[hold]).abs() > fixed_span / 2
-        moved[hold] = False
+        moved = kept & ((mid - mid[hold]).abs() > fixed_span / 2)
     slots = torch.nonzero(moved).flatten()
     perm[slots] = slots[torch.randperm(len(slots), generator=order, device=dev)]
     src_off = offsets[perm]

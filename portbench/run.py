@@ -9,8 +9,9 @@ against the plain reference (portbench/reference/). It prints the checks
 as the last lines of standard error and one JSON result as the last line
 of standard output: with `--trace 0` the cell's end-to-end metrics, with
 `--trace 1` its per-layer metrics, read under torch.profiler. It exits
-non-zero, with no result, without enough CUDA cards, and when the JAX
-package or JAX is loaded once the window has closed.
+non-zero, with no result, without enough CUDA cards, when the entry
+stops the run (harness.Stop: a warm-up that cannot reach its window),
+and when the JAX package or JAX is loaded once the window has closed.
 """
 
 from __future__ import annotations
@@ -149,7 +150,11 @@ def measure(args, man, cell, conf, mixd, torch, dev, clock, open_window) -> int:
             close_window=close_window,
             patterns=[pattern_mask(p) for p in conf["patterns"]])
     entry = importlib.import_module(f"portbench.entries.{mixd['entry']}")
-    out = entry.run(r)
+    try:
+        out = entry.run(r)
+    except harness.Stop as e:
+        harness.log(f"{args.workload}: {e}")
+        return 1
 
     device_out = harness.device_info(torch, dev, cell["chips"])
     device_out["memory_peak_bytes"] = peak.get("bytes", 0)

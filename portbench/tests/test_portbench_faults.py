@@ -11,7 +11,12 @@ with the program broken underneath, and sees `correct` come out false:
              another each round, after the round; one row's cost)
   control    the truncated-screen control (run.py: every screening launch
              scored on the first 128 bases of its b side)
-The exchange between chips does not exist in these one-card cells.
+The exchange between chips does not exist in these one-card cells. Each
+fault is in place from before set-up, but for a grow cell's `unchanged`:
+a commit that consumes nothing never launches K2 and the walk, nor grows
+the contig, so from the start it stops the run in its warm-up (exit 1, no
+result; the last test), and it is planted as the window opens, where
+run.py installs the control.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from conftest import run_cell, tiny
+from conftest import run, run_cell, tiny
+from portbench.entries import rounds
 
 
 def break_rounds(monkeypatch, fault):
@@ -75,12 +81,32 @@ def break_locate(monkeypatch, fault):
 @pytest.mark.parametrize("cell", ["ecoli_clr15.grow", "ecoli_3pct.locate"])
 def test_broken_path_is_not_correct(monkeypatch, cell, fault):
     conf, mix = tiny(cell)
-    if fault != "control":
+    in_window = cell.endswith(".grow") and fault == "unchanged"
+    if in_window:
+        def plant(torch):
+            mp = pytest.MonkeyPatch()
+            break_rounds(mp, fault)
+            return mp.undo
+
+        monkeypatch.setattr(run, "install_control", plant)
+    elif fault != "control":
         (break_rounds if cell.endswith(".grow") else break_locate)(monkeypatch, fault)
-    rc, res = run_cell(cell, 2**32 + 17, 1.0, config=conf, mix=mix, control=fault == "control")
+    rc, res = run_cell(cell, 2**32 + 17, 1.0, config=conf, mix=mix,
+                       control=in_window or fault == "control")
     assert rc == 0 and res is not None
     assert not res["correct"]
     failed = [k for k, c in res["checks"].items() if c["value"] > c["limit"]]
     print(cell, fault, {k: res["checks"][k]["value"] for k in failed})
     assert failed
     assert np.isfinite(list(res["metrics"].values())[0]["value"])
+
+
+def test_a_commit_that_consumes_nothing_from_the_start_stops_the_warm_up(monkeypatch, capsys):
+    monkeypatch.setattr(rounds, "WARMUP_MAX", 40)
+    break_rounds(monkeypatch, "unchanged")
+    conf, mix = tiny("ecoli_clr15.grow")
+    rc, res = run_cell("ecoli_clr15.grow", 2**32 + 17, 1.0, config=conf, mix=mix)
+    assert rc == 1 and res is None
+    err = capsys.readouterr().err
+    assert "the warm-up did not meet its gate in 40 rounds" in err
+    assert "counters still at 0: ['plain_parents', 'plain_walk']" in err

@@ -19,23 +19,28 @@ def reads_of(d):
     return [d["codes"][o: o + n].tobytes() for o, n in zip(d["offsets"], d["lengths"])]
 
 
+# engine settings that keep every read, and the engine's first draw among them
+KEEP_ALL = {"rng_seed": 7, "min_read_len": 0, "max_read_len": 10**9}
+
+
 def test_store_is_made_from_the_seed():
     conf, _ = tiny("ecoli_clr15.grow")
-    a = store.generate(conf["store"], 2**40 + 3, "cpu", hold=5)
-    b = store.generate(conf["store"], 2**40 + 3, "cpu", hold=5)
-    c = store.generate(conf["store"], 2**40 + 4, "cpu", hold=5)
+    a = store.generate(conf["store"], 2**40 + 3, "cpu", engine=KEEP_ALL)
+    b = store.generate(conf["store"], 2**40 + 3, "cpu", engine=KEEP_ALL)
+    c = store.generate(conf["store"], 2**40 + 4, "cpu", engine=KEEP_ALL)
     for k in a:
         assert np.array_equal(a[k], b[k]), k
-    # another run seed: the same genome and reads in another order, read 5 in place
+    first = int(np.random.default_rng(7).integers(0, len(a["lengths"])))
+    # another run seed: the same genome and reads in another order, the first read in place
     assert np.array_equal(a["genome"], c["genome"])
     ra, rc = reads_of(a), reads_of(c)
-    assert sorted(ra) == sorted(rc) and ra != rc and ra[5] == rc[5]
-    # with a fixed span: the reads near read 5 keep their positions, the others move
-    d = store.generate(conf["store"], 2**40 + 3, "cpu", hold=5, fixed_span=3000)
-    e = store.generate(conf["store"], 2**40 + 4, "cpu", hold=5, fixed_span=3000)
+    assert sorted(ra) == sorted(rc) and ra != rc and ra[first] == rc[first]
+    # with a fixed span: the reads near the first read keep their positions, the others move
+    d = store.generate(conf["store"], 2**40 + 3, "cpu", engine=KEEP_ALL, fixed_span=3000)
+    e = store.generate(conf["store"], 2**40 + 4, "cpu", engine=KEEP_ALL, fixed_span=3000)
     rd, re_ = reads_of(d), reads_of(e)
     same = [i for i in range(len(rd)) if rd[i] == re_[i]]
-    assert sorted(rd) == sorted(re_) and 5 in same and 1 < len(same) < len(rd) // 2
+    assert sorted(rd) == sorted(re_) and first in same and 1 < len(same) < len(rd) // 2
     other = store.generate(dict(conf["store"], seed=12), 2**40 + 3, "cpu")
     assert not np.array_equal(a["genome"], other["genome"])
     lens = a["lengths"]
@@ -52,6 +57,24 @@ def test_store_is_made_from_the_seed():
         assert np.array_equal(codes, a["codes"][o: o + ln])
         off += 4 + (ln + 3) // 4
     assert off == len(buf)
+
+
+def test_reads_the_engine_drops_keep_their_place():
+    """The engine numbers only the reads its length filter keeps; those it
+    drops stay in place, so under two seeds its first read, and the reads
+    whose middles lie within the fixed span of it, are the same reads."""
+    conf, _ = tiny("ecoli_clr15.grow")
+    eng = dict(conf["engine"], max_read_len=1200)  # drops about a fifth of the tiny store
+    d, e = (store.generate(conf["store"], s, "cpu", engine=eng, fixed_span=3000)
+            for s in (2**40 + 3, 2**40 + 4))
+    dropped = d["lengths"] >= eng["max_read_len"]
+    assert dropped.any() and np.array_equal(dropped, e["lengths"] >= eng["max_read_len"])
+    kd, ke = (engine.Reads(x["codes"], x["offsets"], x["lengths"], eng["min_read_len"],
+                           eng["max_read_len"]) for x in (d, e))
+    first = int(np.random.default_rng(eng["rng_seed"]).integers(0, len(kd)))
+    assert np.array_equal(kd.codes(first), ke.codes(first))
+    same = sum(np.array_equal(kd.codes(i), ke.codes(i)) for i in range(len(kd)))
+    assert 1 < same < len(kd)
 
 
 def test_error_profile_rates():
